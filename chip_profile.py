@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Where the time of one GPU prove goes (the PyTorch/CUDA port, one card).
 
-    python3 chip_profile.py [--log2-muls 16] [--out DIR]
+    python3 chip_profile.py [--snark] [--log2-muls 16] [--out DIR]
 
 Builds the chain circuit of ``chip_smoke.py``, sets up the generators on
 the card and proves twice with no profiler (the first prove of a process
-fills the host caches, the second is the steady time).  Then it proves
-twice more; every proof is verified outside the timed and profiled parts:
+fills the host caches, the second is the steady time).  With ``--snark``
+the prove is Pinocchio's over BN256 G1 (the SparseQAP of the chain
+circuit, keys from generate_keys_fast, compute_proof_fast); without it,
+the AC20 compressed-pivot prove over Ed25519.  Then it proves twice more;
+every proof is verified outside the timed and profiled parts:
 
 1. under ``torch.profiler`` (CPU and CUDA activity): the prove's wall
    seconds, the device time of each kernel and copy, and the device's busy
@@ -16,7 +19,8 @@ twice more; every proof is verified outside the timed and profiled parts:
    which say where the rest of the prove goes (cProfile slows pure-Python
    code, so its seconds are shares, not times).
 
-With ``--out`` the full host table goes to ``DIR/profile_host.txt``.  The
+With ``--out`` the full host table goes to ``DIR/profile_host.txt``
+(``DIR/profile_host_snark.txt`` with ``--snark``).  The
 last line is one JSON object with the numbers above.  Imports neither jax
 nor the JAX package, and fails without a card.
 """
@@ -38,19 +42,57 @@ import chip_smoke as smoke
 HOST_ROWS = 25
 
 
-def _prove(torch, cs, gens, circuit, x, gf):
+def _timed(torch, prove):
     """(proof, wall seconds of the prove, ended by a device sync)."""
     t0 = time.perf_counter()
-    proof = cs.circuit_sat_prover(gens, circuit, x, gf,
-                                  cs.PivotChoice.compressed)
+    proof = prove()
     torch.cuda.synchronize()
     return proof, time.perf_counter() - t0
 
 
-def _verify(cs, proof, gens, circuit, gf):
-    ver = cs.circuit_sat_verifier(proof, gens, circuit, gf,
-                                  cs.PivotChoice.compressed)
-    assert smoke.verified(ver), f"proof did not verify: {ver}"
+def ac20_path(vm, log2_muls: int):
+    """(prove, check) of the Ed25519 flagship: the compressed-pivot prove
+    and its verify, which also asserts that the resident engine ran."""
+    import verifiable_mpc_tpu_torch.ac20.circuit_sat_cb as cs
+    from verifiable_mpc_tpu_torch.ac20 import pivot_gpu
+
+    pc = cs.PivotChoice.compressed
+    group, gf, circuit, x, g_length = smoke.padded_circuit(vm, log2_muls)
+    gens = cs.create_generators(g_length, pc, group)
+    runs = [pivot_gpu.ENGINE_RUNS]
+
+    def prove():
+        runs[0] = pivot_gpu.ENGINE_RUNS
+        return cs.circuit_sat_prover(gens, circuit, x, gf, pc)
+
+    def check(proof):
+        assert pivot_gpu.ENGINE_RUNS > runs[0], "the GPU engine never ran"
+        ver = cs.circuit_sat_verifier(proof, gens, circuit, gf, pc)
+        assert smoke.verified(ver), f"proof did not verify: {ver}"
+
+    return prove, check
+
+
+def snark_path(mc, log2_muls: int):
+    """(prove, check) of Pinocchio over BN256 G1: compute_proof_fast with
+    fresh deltas, and its verify, which also asserts that K5 and K6 ran."""
+    import verifiable_mpc_tpu_torch.trinocchio.pynocchio as pyn
+
+    g1, g2, gf, qap = smoke.snark_setup(log2_muls)
+    evalkey, verikey = smoke.snark_keygen(g1, g2, qap)
+    c = qap.calculate_witness([gf(3)])
+    seen = [0]
+
+    def prove():
+        seen[0] = mc.LAUNCHES["bn_msm_accumulate"]
+        return smoke.snark_prove(g1, qap, c, evalkey)
+
+    def check(proof):
+        assert mc.LAUNCHES["bn_msm_accumulate"] > seen[0], "K5 never ran"
+        ver = pyn.verify(qap, verikey, proof, c[: qap.out_ix + 1])
+        assert all(ver.values()), f"proof did not verify: {ver}"
+
+    return prove, check
 
 
 def device_table(torch, prof):
@@ -70,7 +112,9 @@ def device_table(torch, prof):
 
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--log2-muls", type=int, default=smoke.FLAGSHIP_LOG2_MULS)
+    ap.add_argument("--snark", action="store_true",
+                    help="profile the Pinocchio prove over BN256 G1")
+    ap.add_argument("--log2-muls", type=int, default=None)
     ap.add_argument("--out", help="directory for the full host table")
     args = ap.parse_args(argv)
 
@@ -82,26 +126,29 @@ def main(argv) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     import verifiable_mpc_tpu_torch as vm
-    import verifiable_mpc_tpu_torch.ac20.circuit_sat_cb as cs
-    from verifiable_mpc_tpu_torch.ac20 import pivot_gpu
+    from verifiable_mpc_tpu_torch.ops import msm_cuda as mc
 
     print(smoke.card_line(), flush=True)
     vm.enable_gpu("cuda")
-    _group, gf, circuit, x, g_length = smoke.padded_circuit(vm, args.log2_muls)
-    gens = cs.create_generators(g_length, cs.PivotChoice.compressed, _group)
-    proof, warm = _prove(torch, cs, gens, circuit, x, gf)
-    _verify(cs, proof, gens, circuit, gf)
-    proof, steady = _prove(torch, cs, gens, circuit, x, gf)
-    _verify(cs, proof, gens, circuit, gf)
-    print(f"prove 2^{args.log2_muls}: first {warm:.3f} s, second {steady:.3f}"
+    if args.snark:
+        log2 = args.log2_muls or smoke.SNARK_LOG2_MULS
+        prove, check = snark_path(mc, log2)
+        path = "pinocchio"
+    else:
+        log2 = args.log2_muls or smoke.FLAGSHIP_LOG2_MULS
+        prove, check = ac20_path(vm, log2)
+        path = "ac20"
+    proof, warm = _timed(torch, prove)
+    check(proof)
+    proof, steady = _timed(torch, prove)
+    check(proof)
+    print(f"{path} prove 2^{log2}: first {warm:.3f} s, second {steady:.3f}"
           " s (no profiler)", flush=True)
 
-    runs0 = pivot_gpu.ENGINE_RUNS
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        proof, wall = _prove(torch, cs, gens, circuit, x, gf)
-    _verify(cs, proof, gens, circuit, gf)
-    assert pivot_gpu.ENGINE_RUNS > runs0, "the resident GPU engine never ran"
+        proof, wall = _timed(torch, prove)
+    check(proof)
     dev = device_table(torch, prof)
     dev_ms = sum(ms for _n, ms in dev.values())
     print(f"profiled prove: {wall:.3f} s wall (profiler on)", flush=True)
@@ -114,9 +161,9 @@ def main(argv) -> int:
 
     host = cProfile.Profile()
     host.enable()
-    proof, host_wall = _prove(torch, cs, gens, circuit, x, gf)
+    proof, host_wall = _timed(torch, prove)
     host.disable()
-    _verify(cs, proof, gens, circuit, gf)
+    check(proof)
     buf = io.StringIO()
     pstats.Stats(host, stream=buf).sort_stats("cumulative").print_stats(
         HOST_ROWS)
@@ -126,12 +173,14 @@ def main(argv) -> int:
         os.makedirs(args.out, exist_ok=True)
         full = io.StringIO()
         pstats.Stats(host, stream=full).sort_stats("cumulative").print_stats()
-        with open(os.path.join(args.out, "profile_host.txt"), "w") as f:
+        name = "profile_host_snark.txt" if args.snark else "profile_host.txt"
+        with open(os.path.join(args.out, name), "w") as f:
             f.write(full.getvalue())
 
     print(json.dumps({
-        "log2_muls": args.log2_muls, "first_prove_s": warm,
-        "second_prove_s": steady, "profiled_prove_s": wall, "device_ms": dev_ms, "device_busy": busy,
+        "path": path, "log2_muls": log2, "first_prove_s": warm,
+        "second_prove_s": steady, "profiled_prove_s": wall,
+        "device_ms": dev_ms, "device_busy": busy,
         "device": {name: {"count": c, "ms": ms}
                    for name, (c, ms) in dev.items()},
         "kind": torch.cuda.get_device_name(0),

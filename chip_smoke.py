@@ -8,22 +8,33 @@ Run from the repository root on a machine with one CUDA card:
 Phases (each one fatal; any failure exits non-zero and prints no result):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the kernels (nvcc) and the C++ host tier (g++), with their seconds;
+2. build the kernels (nvcc, ptxas's registers per thread of every kernel)
+   and the C++ host tier (g++), with their seconds;
 3. hold every kernel against its plain PyTorch version on the same inputs
-   on the card: K1 + K2 (MSM), K3 (fold), K4 (comb) at n in {1, 300, 4096}
-   with edge scalars, then each kernel alone at the shapes the flagship
-   path gives it, timed with CUDA events beside its plain version and its
-   bound; the tolerance is exact equality of canonical values;
-4. the MSM at 2^16 against the port's C++ tier (native.ed_msm_arr);
+   on the card: K1 + K2 (MSM), K3 (fold), K4 (comb) over Ed25519 and
+   K5 + K6 (MSM), K7 (fold), K8 (comb) over BN256 G1 at n in {1, 300,
+   4096} with edge scalars (and identity inputs for BN), also against the
+   C++ tier; then each kernel alone at the shapes its path gives it, timed
+   with CUDA events beside its plain version and its bound; the tolerance
+   is exact equality of canonical values;
+4. the Ed25519 MSM at 2^16 against the port's C++ tier
+   (native.ed_msm_arr); the BN MSM and comb at 2^16 against native.bn_msm /
+   bn_batch_exp, and both at the BN tier's threshold sizes;
 5. the engine cut-over: one protocol-4 round on the card and on the C++
    tier per half size;
-6. the flagship: enable_gpu(), a 2^16-multiplication chain circuit,
-   create_generators, circuit_sat_prover, circuit_sat_verifier; the kernel
-   launch counts are zeroed just before and read just after, and every
-   kernel and the resident engine must have run;
+6. the Ed25519 flagship: enable_gpu(), a 2^16-multiplication chain
+   circuit, create_generators, circuit_sat_prover, circuit_sat_verifier;
+   the kernel launch counts are zeroed just before and read just after,
+   and every kernel of that path and the resident engine must have run;
 7. parity at 2^12 multiplications: the GPU prove and the enable_native()
    prove under one seed give identical (normalized) proof bytes;
-8. the ``kernels`` JSON line, then the result line
+8. the BN256 G1 path: Pinocchio at 2^16 multiplications with
+   enable_gpu() (SparseQAP, generate_keys_fast, calculate_witness,
+   compute_proof_fast, verify), seconds and launches per stage, K8 in the
+   key generation and K5 + K6 in the prove; at 2^10, the enable_gpu() and
+   enable_native() evaluation keys and proofs equal once normalized; the
+   KoE pivot at 2^10 (K8 in its setup, K5 + K6 in its prove);
+9. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Imports neither jax nor the JAX package.
@@ -45,6 +56,14 @@ FLAGSHIP_LOG2_MULS = 16  # BASELINE.json's target size
 PARITY_LOG2_MULS = 12
 MSM_BENCH_LOG2 = 16
 CHECK_SIZES = (1, 300, 4096)
+SNARK_LOG2_MULS = 16  # BASELINE.json's Pinocchio size
+# the QAP of 2^16 chain multiplications has m = d + 1 = 2^17 (each line
+# adds its product and its sum): the prove's MSMs and keygen's combs run
+# over about 2^17 points or exponents
+SNARK_SHAPE = 1 << (SNARK_LOG2_MULS + 1)
+SNARK_PARITY_LOG2_MULS = 10
+KOE_LOG2_MULS = 10
+BN_TIER_SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384)
 CUTOVER_HALVES = tuple(1 << k for k in range(7, 15))
 
 # H100 SXM peaks used for the bounds (NVIDIA data sheet; the card may run
@@ -61,6 +80,21 @@ INV = 265  # one Fermat inversion: 254 squarings and 11 multiplies
 NORM_EACH = 6  # per point of a batch: Montgomery batch inversion's 3,
 #                then x = X/Z, y = Y/Z and t = x*y
 
+# BN256 G1 (csrc/fp254.cuh, csrc/bn254_kernels.cuh), counted in 32-bit
+# multiplies as the functions need them: a Montgomery product (M) is 64 + 64
+# 32x32->64 products (lo and hi each) and 8 low products; a square (S)
+# needs 36 limb products where a product needs 64; times b3 = 9 is four
+# additions, no multiply.  The complete add is 12 M, the doubling 6 M +
+# 2 S, an input row's encoding (X Z, Y, Z^3) R 5 M + 1 S.
+BN_M = 2 * 64 + 2 * 64 + 8
+BN_S = 2 * 36 + 2 * 64 + 8
+BN_ADD = 12 * BN_M
+BN_DBL = 6 * BN_M + 2 * BN_S
+BN_ENC = 5 * BN_M + BN_S
+BN_INV = 255 * BN_S + 124 * BN_M  # p - 2: 255 squarings, 124 multiplies
+BN_NORM_EACH = 6 * BN_M  # batch inversion's 3, Z^-1 out of Montgomery
+#                          form, x, y
+
 DEV = "cuda"
 
 SOURCES = {
@@ -68,14 +102,24 @@ SOURCES = {
     "msm_tail": "verifiable_mpc_tpu_torch/csrc/msm_tail.cu",
     "fold": "verifiable_mpc_tpu_torch/csrc/fold.cu",
     "comb": "verifiable_mpc_tpu_torch/csrc/comb.cu",
+    "bn_msm_accumulate": "verifiable_mpc_tpu_torch/csrc/bn_msm_accum.cu",
+    "bn_msm_tail": "verifiable_mpc_tpu_torch/csrc/bn_msm_tail.cu",
+    "bn_fold": "verifiable_mpc_tpu_torch/csrc/bn_fold.cu",
+    "bn_comb": "verifiable_mpc_tpu_torch/csrc/bn_comb.cu",
 }
 
+_BN = " with the BN adapter verifiable_mpc_tpu/ops/bn_pallas.py:54,88"
 REPLACES = {
     "msm_accumulate": "verifiable_mpc_tpu/ops/msm_pallas.py:555",
     "msm_tail": "verifiable_mpc_tpu/ops/msm_pallas.py:616",
     "fold": "verifiable_mpc_tpu/ops/msm_pallas.py:929",
     "comb": "verifiable_mpc_tpu/ops/msm_pallas.py:1284",
+    "bn_msm_accumulate": "verifiable_mpc_tpu/ops/msm_pallas.py:555" + _BN,
+    "bn_msm_tail": "verifiable_mpc_tpu/ops/msm_pallas.py:616" + _BN,
+    "bn_fold": "verifiable_mpc_tpu/ops/msm_pallas.py:929" + _BN,
+    "bn_comb": "verifiable_mpc_tpu/ops/msm_pallas.py:1284" + _BN,
 }
+ED_KERNELS = ("msm_accumulate", "msm_tail", "fold", "comb")
 
 
 def log(msg):
@@ -121,6 +165,20 @@ def cuda_ms(torch, fn, reps: int = 3) -> float:
     return best
 
 
+def cuda_once(torch, fn):
+    """(result, ms) of one run of ``fn`` timed with CUDA events: the plain
+    versions at full shape take seconds, so their one correctness run is
+    their timed run."""
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn()
+    e.record()
+    e.synchronize()
+    return out, s.elapsed_time(e)
+
+
 def max_abs_err(torch, a, b) -> float:
     """Largest |a - b| over the canonical u64 limbs (0 when identical)."""
     if torch.equal(a, b):
@@ -130,13 +188,15 @@ def max_abs_err(torch, a, b) -> float:
     return float(np.abs(d).max()) or 1.0
 
 
-def bound(torch, nbytes: float, field_muls: float):
+def bound(torch, nbytes: float, field_muls: float,
+          per_mul: int = MULS_PER_FIELD_MUL):
     """(ms, "bytes" or "operations"): the larger of the time to move
-    ``nbytes`` at the memory rate and the time for ``field_muls`` at the
-    32-bit integer multiply rate."""
+    ``nbytes`` at the memory rate and the time for ``field_muls`` field
+    multiplies of ``per_mul`` 32-bit multiplies each at the 32-bit integer
+    multiply rate."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     by_bytes = nbytes / HBM_BYTES_PER_S
-    by_ops = field_muls * MULS_PER_FIELD_MUL / (
+    by_ops = field_muls * per_mul / (
         sms * INT32_MULS_PER_SM_PER_CLK * BOOST_HZ)
     return (max(by_bytes, by_ops) * 1e3,
             "operations" if by_ops >= by_bytes else "bytes")
@@ -498,7 +558,7 @@ def flagship(torch, vm, mc):
     log(f"   verification {ver}; engine runs {runs}; launches {launches}")
     assert verified(ver), f"flagship proof did not verify: {ver}"
     assert runs > 0, "the resident GPU engine never ran"
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in ED_KERNELS if launches[k] == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
     return launches
 
@@ -529,6 +589,362 @@ def parity(torch, vm):
         "to the C++ tier's, verified")
 
 
+# ---------------------------------------------------------------------------
+# BN256 G1: kernels K5-K8, the C++ tier, Pinocchio and KoE
+# ---------------------------------------------------------------------------
+
+
+def bn_points(native, n: int, rng, identity_at=(), rescale=True):
+    """n BN256 G1 points made by the C++ tier; with ``rescale`` every
+    third one in jacobian coordinates with Z != 1 (identities where
+    asked)."""
+    from verifiable_mpc_tpu_torch.groups.bn256 import ORDER, BNPoint
+
+    pts = native.bn_batch_exp(BNPoint.generator,
+                              [rng.randrange(1, ORDER) for _ in range(n)])
+    for i in range(1, n, 3) if rescale else ():
+        lam, q = rng.randrange(2, ORDER), pts[i].normalize()
+        pts[i] = BNPoint(int(q.x) * lam**2, int(q.y) * lam**3, lam,
+                         check=False)
+    for i in identity_at:
+        if i < n:
+            pts[i] = BNPoint.identity
+    return pts
+
+
+def bn_host_rows(native, points) -> np.ndarray:
+    """Normalized rows of host points: what the BN kernels return."""
+    from verifiable_mpc_tpu_torch.groups.bn256 import BNPoint
+
+    return np.ascontiguousarray(
+        native._bn_pts_to_u64(BNPoint.batch_normalize(list(points))))
+
+
+def check_small_bn(torch, native, mc, mb, cbn, rng):
+    """K5 + K6, K7, K8 against their plain versions and the C++ tier at the
+    CHECK_SIZES, with the edge scalars and identity inputs in every batch
+    of more than a few points."""
+    from verifiable_mpc_tpu_torch.groups.bn256 import ORDER
+
+    dev = torch.device(DEV)
+    for n in CHECK_SIZES:
+        pts = bn_points(native, n, rng, identity_at=(3, 200))
+        sc = (edge_scalars(ORDER) + [rng.randrange(ORDER)
+                                     for _ in range(n)])[:n]
+        pk, nw = mc.packed_digits(native._scalars_to_u64(sc, ORDER), ORDER)
+        pts_t = cbn.encode_points(pts, dev)
+        dig = torch.from_numpy(pk).to(dev)
+        got = mb.msm_rows(pts_t[None], dig[None])
+        plain = mb.msm_plain(pts_t[None], dig[None])
+        assert torch.equal(got, plain), f"K5+K6 != plain at n={n}"
+        host = bn_host_rows(native, [native.bn_msm(pts, sc)])
+        assert np.array_equal(cbn.to_rows(got), host), f"K5+K6 != C++ n={n}"
+
+        gr = bn_points(native, n, rng, identity_at=(0, 7))
+        c = rng.randrange(ORDER)
+        cdig = mc.scalar_digits([c], ORDER)[:, 0]
+        gr_t = cbn.encode_points(gr, dev)
+        got = mb.fold_rows(pts_t, gr_t, cdig)
+        plain = mb.fold_plain(pts_t, gr_t, cdig.astype(np.uint8))
+        assert torch.equal(got, plain), f"K7 != plain at n={n}"
+        host = bn_host_rows(native, [native.bn_msm([a, b], [c, 1])
+                                     for a, b in zip(pts, gr)])
+        assert np.array_equal(cbn.to_rows(got), host), f"K7 != C++ n={n}"
+
+        base = bn_points(native, 1, rng)[0]
+        table = mb.comb_table(base, nw, dev)
+        got = mb.comb_rows(table, dig)
+        plain = mb.comb_plain(table, dig)
+        assert torch.equal(got, plain), f"K8 != plain at n={n}"
+        host = bn_host_rows(native, native.bn_batch_exp(base, sc))
+        assert np.array_equal(cbn.to_rows(got), host), f"K8 != C++ n={n}"
+        torch.cuda.synchronize()
+        log(f"   n={n}: K5+K6, K7, K8 equal their plain versions and the "
+            "C++ tier")
+
+
+def check_main_shapes_bn(torch, native, mc, mb, cbn, rng, n: int):
+    """K5-K8 alone at the shapes of the Pinocchio path (one MSM of n
+    points, a fold of n, a comb of n exponents): result against the plain
+    version on the same inputs, CUDA-event time, plain time, bound."""
+    from verifiable_mpc_tpu_torch.groups.bn256 import ORDER, BNPoint
+
+    dev = torch.device(DEV)
+    stats = {}
+    pts = bn_points(native, 2 * n, rng, identity_at=(5,))
+    g = cbn.encode_points(pts, dev)
+    sc = edge_scalars(ORDER) + [rng.randrange(ORDER) for _ in range(n - 7)]
+    pk, nw = mc.packed_digits(native._scalars_to_u64(sc, ORDER), ORDER)
+    dig = torch.from_numpy(pk).to(dev)[None]
+    P = g[:n][None]
+    S = mc.slices_for(n)
+    acc = mb.msm_accumulate(P, dig, S)
+    acc_plain, k5_plain = cuda_once(
+        torch, lambda: mb.msm_accumulate_plain(P, dig, S))
+    norm = lambda a: cbn.normalize_rows(cbn.split_rows(a))  # noqa: E731
+    k5_err = max_abs_err(torch, norm(acc), norm(acc_plain))
+    assert k5_err == 0.0, "K5 accumulators differ from the plain version"
+    out = mb.msm_tail(acc)
+    out_plain, k6_plain = cuda_once(torch, lambda: mb.msm_tail_plain(acc))
+    k6_err = max_abs_err(torch, out, out_plain)
+    assert k6_err == 0.0, "K6 differs from the plain version"
+    d = mc.unpack_digits(dig)  # [1, nw, n]
+    top = d.abs().amax(dim=1)
+    k5_muls = (n * BN_ENC + BN_ADD * int((top - 1).clamp(min=0).sum())
+               + BN_ADD * int((d != 0).sum()))
+    stats["bn_msm_accumulate"] = dict(
+        err=k5_err, ms=cuda_ms(torch, lambda: mb.msm_accumulate(P, dig, S)),
+        plain_ms=k5_plain, shape=f"B=1 n={n} nw={nw} S={S}",
+        bytes=n * 96 + dig.numel() + nw * S * 96, muls=k5_muls)
+    stats["bn_msm_tail"] = dict(
+        err=k6_err, ms=cuda_ms(torch, lambda: mb.msm_tail(acc)),
+        plain_ms=k6_plain, shape=f"B=1 nw={nw} S={S}",
+        bytes=nw * S * 96 + 96,
+        muls=(nw * (S - 1) * BN_ADD + (nw - 1) * 4 * BN_DBL + nw * BN_ADD
+              + BN_NORM_EACH + BN_INV))
+
+    gl, gr = g[:n], g[n:]
+    c = rng.randrange(ORDER)
+    cdig = mc.scalar_digits([c], ORDER)[:, 0]
+    got = mb.fold_rows(gl, gr, cdig)
+    plain, k7_plain = cuda_once(
+        torch, lambda: mb.fold_plain(gl, gr, cdig.astype(np.uint8)))
+    k7_err = max_abs_err(torch, got, plain)
+    assert k7_err == 0.0, "K7 differs from the plain version"
+    nzc = int((cdig != 0).sum())
+    first = int(np.flatnonzero(cdig)[0])
+    k7_muls = n * (2 * BN_ENC + max(int(cdig.max()) - 1, 0) * BN_ADD
+                   + (len(cdig) - 1 - first) * 4 * BN_DBL + nzc * BN_ADD
+                   + BN_ADD + BN_NORM_EACH) + BN_INV
+    stats["bn_fold"] = dict(
+        err=k7_err, ms=cuda_ms(torch, lambda: mb.fold_rows(gl, gr, cdig)),
+        plain_ms=k7_plain, shape=f"n={n} nw=64", bytes=3 * n * 96,
+        muls=k7_muls)
+
+    exps = [rng.randrange(1, ORDER) for _ in range(n)]
+    pk8, nw8 = mc.packed_digits(native._scalars_to_u64(exps, ORDER), ORDER)
+    dig8 = torch.from_numpy(pk8).to(dev)
+    table = mb.comb_table(BNPoint.generator, nw8, dev)
+    got = mb.comb_rows(table, dig8)
+    plain, k8_plain = cuda_once(torch, lambda: mb.comb_plain(table, dig8))
+    k8_err = max_abs_err(torch, got, plain)
+    assert k8_err == 0.0, "K8 differs from the plain version"
+    nz8 = int((mc.unpack_digits(dig8) != 0).sum())
+    stats["bn_comb"] = dict(
+        err=k8_err, ms=cuda_ms(torch, lambda: mb.comb_rows(table, dig8)),
+        plain_ms=k8_plain, shape=f"n={n} nw={nw8}",
+        bytes=table.numel() * 8 + dig8.numel() + n * 96,
+        muls=(table.shape[0] * BN_ENC + nz8 * BN_ADD + n * BN_NORM_EACH
+              + BN_INV))
+    for name, st in stats.items():
+        st["bound_ms"], st["bound_by"] = bound(torch, st["bytes"], st["muls"],
+                                               per_mul=1)
+        log(f"   {name} [{st['shape']}]: {st['ms']:.3f} ms, plain "
+            f"{st['plain_ms']:.1f} ms, bound {st['bound_ms']:.4f} ms "
+            f"({st['bound_by']}), 32-bit multiplies {st['muls']}, "
+            f"max_abs_err {st['err']}")
+    return stats
+
+
+def _spread(ts):
+    return (f"best {min(ts) * 1e3:.3f} ms, mean "
+            f"{statistics.mean(ts) * 1e3:.3f}"
+            f" ± {statistics.stdev(ts) * 1e3:.3f} ms over {len(ts)} reps")
+
+
+def bn_bench(torch, native, mc, mb, rng):
+    """The BN MSM and comb as the dispatch calls them (host points and
+    scalars in, a host point list out) on the card and on the C++ tier:
+    at 2^16, best of 5 with distinct scalars every rep, then at the tier's
+    threshold sizes (best of 3)."""
+    from verifiable_mpc_tpu_torch.groups.bn256 import ORDER
+
+    n = 1 << SNARK_LOG2_MULS
+    pts = bn_points(native, n, rng, rescale=False)  # keys are affine
+    base = pts[1]
+
+    def one(size, reps):
+        gm, cm, gc, cc = [], [], [], []
+        for rep in range(reps + 1):  # rep 0 warms up
+            sc = [rng.randrange(ORDER) for _ in range(size)]
+            t0 = time.perf_counter()
+            a = mb.msm(pts[:size], sc)
+            t1 = time.perf_counter()
+            b = native.bn_msm(pts[:size], sc)
+            t2 = time.perf_counter()
+            ca = mb.batch_exp_comb(base, sc)
+            t3 = time.perf_counter()
+            cb_ = native.bn_batch_exp(base, sc)
+            t4 = time.perf_counter()
+            assert a == b, f"GPU BN MSM != C++ at n={size}"
+            assert ca == cb_, f"GPU BN comb != C++ at n={size}"
+            if rep:
+                gm.append(t1 - t0)
+                cm.append(t2 - t1)
+                gc.append(t3 - t2)
+                cc.append(t4 - t3)
+        return gm, cm, gc, cc
+
+    gm, cm, gc, cc = one(n, 5)
+    for name, ts in (("gpu msm (K5+K6, encode to decode)", gm),
+                     ("c++ native.bn_msm", cm),
+                     ("gpu comb (K8, encode to decode)", gc),
+                     ("c++ native.bn_batch_exp", cc)):
+        log(f"   bn 2^{SNARK_LOG2_MULS} {name}: {_spread(ts)}")
+    for size in BN_TIER_SIZES:
+        gm, cm, gc, cc = one(size, 3)
+        log(f"   bn tier n={size}: msm gpu {min(gm) * 1e3:.3f} ms, c++ "
+            f"{min(cm) * 1e3:.3f} ms; comb gpu {min(gc) * 1e3:.3f} ms, c++ "
+            f"{min(cc) * 1e3:.3f} ms")
+
+
+def chain_code(n_muls: int) -> str:
+    """x_{i+1} = x_i * x_i + 1 chain with n_muls mul gates, one per line
+    (the circuit of bench_snark.chain_code)."""
+    lines = ["def qeval(x):", "    a0 = x * x + 1"]
+    for i in range(1, n_muls - 1):
+        lines.append(f"    a{i} = a{i-1} * a{i-1} + 1")
+    lines.append(f"    return a{n_muls-2} * x")
+    return "\n".join(lines) + "\n"
+
+
+def snark_setup(log2_muls: int):
+    """(g1, g2, gf, SparseQAP) of the chain circuit over BN256."""
+    import verifiable_mpc_tpu_torch.trinocchio.qap_fast as qf
+    from verifiable_mpc_tpu_torch.fields import GF
+    from verifiable_mpc_tpu_torch.groups import EllipticCurve
+
+    g1 = EllipticCurve("BN256", "jacobian")
+    g2 = EllipticCurve("BN256_twist", "jacobian")
+    gf = GF(g1.order)
+    gf.is_signed = False
+    return g1, g2, gf, qf.SparseQAP(chain_code(1 << log2_muls), gf)
+
+
+def snark_keygen(g1, g2, qap):
+    import verifiable_mpc_tpu_torch.trinocchio.pynocchio as pyn
+    import verifiable_mpc_tpu_torch.trinocchio.qap_fast as qf
+
+    td = pyn.Trapdoor(g1.order)
+    gen = pyn.Generators(td, g1.generator, g2.generator)
+    return qf.generate_keys_fast(td, qap, gen)
+
+
+def snark_prove(g1, qap, c, evalkey):
+    import verifiable_mpc_tpu_torch.trinocchio.pynocchio as pyn
+    import verifiable_mpc_tpu_torch.trinocchio.qap_fast as qf
+
+    return qf.compute_proof_fast(qap, c, evalkey, pyn.SampleDeltas(g1.order))
+
+
+def pinocchio(torch, vm, mc):
+    """The BN256 G1 path: Pinocchio at 2^16 multiplications with
+    enable_gpu(); the kernel launch counts are zeroed just before and read
+    just after, and the path's kernels must have run where they belong."""
+    import verifiable_mpc_tpu_torch.trinocchio.pynocchio as pyn
+
+    vm.enable_gpu(DEV)
+    secs, per_stage = {}, {}
+
+    def stage(name, fn):
+        before = dict(mc.LAUNCHES)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        per_stage[name] = {k: mc.LAUNCHES[k] - before[k] for k in before
+                           if k.startswith("bn_")}
+        return out
+
+    mc.reset_launches()
+    g1, g2, gf, qap = stage("build_qap",
+                            lambda: snark_setup(SNARK_LOG2_MULS))
+    evalkey, verikey = stage("keygen", lambda: snark_keygen(g1, g2, qap))
+    c = stage("witness", lambda: qap.calculate_witness([gf(3)]))
+    proof = stage("prove", lambda: snark_prove(g1, qap, c, evalkey))
+    ver = stage("verify", lambda: pyn.verify(qap, verikey, proof,
+                                             c[: qap.out_ix + 1]))
+    launches = dict(mc.LAUNCHES)
+    log(f"   QAP m={qap.m} d={qap.d}; "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items())
+        + f" (2^{SNARK_LOG2_MULS} muls)")
+    for name, counts in per_stage.items():
+        log(f"   launches in {name}: {counts}")
+    log(f"   verification {ver}; launches {launches}")
+    assert all(ver.values()), f"Pinocchio proof did not verify: {ver}"
+    assert per_stage["keygen"]["bn_comb"] > 0, "K8 never ran in keygen"
+    for k in ("bn_msm_accumulate", "bn_msm_tail"):
+        assert per_stage["prove"][k] > 0, f"{k} never ran in the prove"
+    return launches
+
+
+def pinocchio_parity(torch, vm, mc):
+    """At 2^10 multiplications, under one seed: the enable_gpu() and the
+    enable_native() evaluation keys and proofs, normalized, are equal."""
+    from verifiable_mpc_tpu_torch import rng, serialization
+
+    g1, g2, gf, qap = snark_setup(SNARK_PARITY_LOG2_MULS)
+    c = qap.calculate_witness([gf(3)])
+    out = {}
+    for backend in ("gpu", "native"):
+        if backend == "gpu":
+            vm.enable_gpu(DEV)
+        else:
+            vm.enable_native()
+        mc.reset_launches()
+        with rng.deterministic(2028):
+            evalkey, _verikey = snark_keygen(g1, g2, qap)
+        with rng.deterministic(2029):
+            proof = snark_prove(g1, qap, c, evalkey)
+        launched = sum(v for k, v in mc.LAUNCHES.items()
+                       if k.startswith("bn_"))
+        assert (launched > 0) == (backend == "gpu"), (backend, mc.LAUNCHES)
+        out[backend] = (serialization.dumps(canonical(evalkey)),
+                        serialization.dumps(canonical(proof)))
+    vm.enable_gpu(DEV)
+    assert out["gpu"][0] == out["native"][0], "evaluation keys differ"
+    assert out["gpu"][1] == out["native"][1], "proofs differ"
+    log(f"   2^{SNARK_PARITY_LOG2_MULS} muls: evaluation key "
+        f"({len(out['gpu'][0])} bytes) and proof ({len(out['gpu'][1])} bytes)"
+        " identical to the C++ tier's, normalized")
+
+
+def koe(torch, vm, mc):
+    """AC20 circuit satisfiability with the KoE pivot over BN256 at 2^10
+    multiplications with enable_gpu(), built as bench_ac20.py --pivot koe
+    builds it."""
+    import verifiable_mpc_tpu_torch.ac20.circuit_builder as cb
+    import verifiable_mpc_tpu_torch.ac20.circuit_sat_cb as cs
+    from verifiable_mpc_tpu_torch.fields import GF
+    from verifiable_mpc_tpu_torch.groups import EllipticCurve
+
+    vm.enable_gpu(DEV)
+    group = [EllipticCurve("BN256", "jacobian"),
+             EllipticCurve("BN256_twist", "jacobian")]
+    gf = GF(group[0].order)
+    circuit = chain_circuit(cb, gf, 1 << KOE_LOG2_MULS)
+    x = circuit.initial_inputs()
+    _check, padding, g_length = cs.check_input_length_power_of_2(x, circuit)
+    for i in range(padding):
+        cb.CircuitVar(gf(0), circuit, "unused_" + str(i))
+    x = circuit.initial_inputs()
+    pc = cs.PivotChoice.koe
+    mc.reset_launches()
+    t0 = time.perf_counter()
+    gens = cs.create_generators(g_length, pc, group)
+    t1 = time.perf_counter()
+    proof = cs.circuit_sat_prover(gens, circuit, x, gf, pc)
+    t2 = time.perf_counter()
+    ver = cs.circuit_sat_verifier(proof, gens, circuit, gf, pc)
+    t3 = time.perf_counter()
+    launches = {k: v for k, v in mc.LAUNCHES.items() if k.startswith("bn_")}
+    log(f"   KoE 2^{KOE_LOG2_MULS} muls (vector length {g_length}): "
+        f"generators {t1 - t0:.3f} s, prove {t2 - t1:.3f} s, verify "
+        f"{t3 - t2:.3f} s; verification {ver}; launches {launches}")
+    assert verified(ver), f"KoE proof did not verify: {ver}"
+    assert launches["bn_comb"] > 0 and launches["bn_msm_accumulate"] > 0
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     import random
@@ -541,7 +957,9 @@ def main() -> int:
     import verifiable_mpc_tpu_torch as vm
     from verifiable_mpc_tpu_torch import native
     from verifiable_mpc_tpu_torch.ops import _cuda_build
+    from verifiable_mpc_tpu_torch.ops import curve_bn as cbn
     from verifiable_mpc_tpu_torch.ops import curve_ed as ced
+    from verifiable_mpc_tpu_torch.ops import msm_bn_cuda as mb
     from verifiable_mpc_tpu_torch.ops import msm_cuda as mc
 
     with Phase("card"):
@@ -555,21 +973,37 @@ def main() -> int:
         log(f"   nvcc {nvcc_s:.1f} s; C++ host tier "
             f"{time.perf_counter() - t1:.1f} s (wall {time.perf_counter() - t0:.1f} s)")
     rng = random.Random(20261016)
+    vm.enable_gpu(DEV)  # the kernels' wrappers read the device it sets
     with Phase("kernels against their plain versions, small n"):
         check_small(torch, native, mc, ced, rng)
+        check_small_bn(torch, native, mc, mb, cbn, rng)
     g_half = 1 << (FLAGSHIP_LOG2_MULS + 1)  # round 0 of a 2^18 vector
     with Phase("kernels at the flagship's shapes"):
         stats = check_main_shapes(torch, native, mc, ced, rng, g_half,
                                   (1 << (FLAGSHIP_LOG2_MULS + 2)) - 1)
+    with Phase("BN kernels at the Pinocchio path's shapes"):
+        stats.update(check_main_shapes_bn(torch, native, mc, mb, cbn, rng,
+                                          SNARK_SHAPE))
     with Phase(f"msm 2^{MSM_BENCH_LOG2} against the C++ tier"):
         msm_bench(torch, native, mc, ced, rng)
+    with Phase("BN msm and comb against the C++ tier"):
+        bn_bench(torch, native, mc, mb, rng)
     with Phase("engine cut-over"):
         cutover(torch, native, mc, ced, rng)
     with Phase(f"flagship 2^{FLAGSHIP_LOG2_MULS}"):
         launches = flagship(torch, vm, mc)
     with Phase(f"parity 2^{PARITY_LOG2_MULS}"):
         parity(torch, vm)
+    with Phase(f"Pinocchio 2^{SNARK_LOG2_MULS}"):
+        bn_launches = pinocchio(torch, vm, mc)
+    with Phase(f"Pinocchio parity 2^{SNARK_PARITY_LOG2_MULS}"):
+        pinocchio_parity(torch, vm, mc)
+    with Phase(f"KoE 2^{KOE_LOG2_MULS}"):
+        koe(torch, vm, mc)
 
+    for name in SOURCES:
+        if name.startswith("bn_"):
+            launches[name] = bn_launches[name]
     kernels = [
         {
             "name": name, "route": "cuda",
@@ -581,6 +1015,7 @@ def main() -> int:
         }
         for name, st in stats.items()
     ]
+    assert len(kernels) == len(SOURCES)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

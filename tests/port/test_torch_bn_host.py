@@ -1,0 +1,180 @@
+"""The BN kernels' per-thread bodies (csrc/bn254_kernels.cuh over
+csrc/fp254.cuh), built with g++ for the CPU, against the plain PyTorch
+versions and Python integers on the same inputs: the field and group code
+of K5-K8 gets checked without a card.  Compiles a C++ file, so it is
+marked slow."""
+
+import ctypes
+import pathlib
+import random
+import shutil
+import subprocess
+import types
+
+import numpy as np
+import pytest
+
+from verifiable_mpc_tpu_torch import native
+from verifiable_mpc_tpu_torch.groups.bn256 import ORDER, P, BNPoint
+
+pytestmark = pytest.mark.slow
+
+ROOT = pathlib.Path(__file__).resolve().parents[2]
+CSRC = ROOT / "verifiable_mpc_tpu_torch" / "csrc"
+R = 1 << 256
+EDGE = [0, 1, ORDER // 2 - 1, ORDER // 2, ORDER // 2 + 1, ORDER - 2,
+        ORDER - 1]
+
+
+def _p(a):
+    return ctypes.c_void_p(a.ctypes.data)
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.fail("g++ is required to build the kernels' CPU harness")
+    so = tmp_path_factory.mktemp("bn_host_check") / "libhost_check.so"
+    subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-o", str(so),
+                    str(CSRC / "host_check.cc")], check=True, timeout=300)
+    return ctypes.CDLL(str(so))
+
+
+@pytest.fixture(scope="module")
+def k():
+    """torch and the port's device-side modules, imported here and not at
+    collection (every xdist worker collects this file)."""
+    import torch
+
+    from verifiable_mpc_tpu_torch.ops import curve_bn, msm_bn_cuda, msm_cuda
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield types.SimpleNamespace(torch=torch, cbn=curve_bn, mb=msm_bn_cuda,
+                                mc=msm_cuda)
+    torch.set_num_threads(n)
+
+
+def _rows(k, n, seed, identity_at=()):
+    """Input rows of n points, every third one with Z != 1."""
+    rng = random.Random(seed)
+    pts = native.bn_batch_exp(BNPoint.generator,
+                              [rng.randrange(1, ORDER) for _ in range(n)])
+    for i in range(1, n, 3):
+        lam, q = rng.randrange(2, ORDER), pts[i].normalize()
+        pts[i] = BNPoint(int(q.x) * lam**2, int(q.y) * lam**3, lam,
+                         check=False)
+    for i in identity_at:
+        if i < n:
+            pts[i] = BNPoint.identity
+    return k.cbn.encode_points(pts, "cpu")
+
+
+def _u64(t):
+    return np.ascontiguousarray(t.numpy().view(np.uint64))
+
+
+def _scalars(n, seed):
+    rng = random.Random(seed)
+    return (EDGE + [rng.randrange(ORDER) for _ in range(n)])[:n]
+
+
+@pytest.mark.parametrize("n", [1, 7, 40])
+def test_msm_bodies_match_plain(host_lib, n, k):
+    rows = _rows(k, n, n, identity_at=(2,))
+    pk, nw = k.mc.packed_digits(native._scalars_to_u64(_scalars(n, n), ORDER),
+                                ORDER)
+    S = k.mc.slices_for(n)
+    work = np.zeros((n, 12), np.uint64)
+    acc = np.zeros((nw, S, 12), np.uint64)
+    wsum = np.zeros((nw, 12), np.uint64)
+    out = np.zeros(12, np.uint64)
+    pts = _u64(rows)
+    host_lib.host_bn_msm(_p(pts), _p(work), _p(pk), n, nw, S, _p(acc),
+                         _p(wsum), _p(out))
+    plain = k.mb.msm_plain(rows[None], k.torch.from_numpy(pk)[None])
+    assert np.array_equal(out, _u64(plain)[0])
+
+
+@pytest.mark.parametrize("n", [1, 7, 40])
+def test_fold_body_matches_plain(host_lib, n, k):
+    gl, gr = _rows(k, n, 2 * n, (1,)), _rows(k, n, 2 * n + 1, (3,))
+    cdig = np.ascontiguousarray(k.mc.scalar_digits(
+        [_scalars(n + 1, 3)[-1]], ORDER)[:, 0].astype(np.uint8))
+    out = np.zeros((n, 12), np.uint64)
+    work = np.zeros((2 * n, 12), np.uint64)
+    a, b = _u64(gl), _u64(gr)
+    host_lib.host_bn_fold_norm(_p(a), _p(b), _p(work), _p(cdig), 64, _p(out),
+                               n)
+    plain = k.mb.fold_plain(gl, gr, cdig)
+    assert np.array_equal(out, _u64(plain))
+
+
+@pytest.mark.parametrize("n", [1, 7, 40])
+def test_comb_body_matches_plain(host_lib, n, k):
+    pk, nw = k.mc.packed_digits(native._scalars_to_u64(_scalars(n, 5), ORDER),
+                                ORDER)
+    table = k.mb.comb_table(BNPoint.generator ** 12345, nw, "cpu")
+    out = np.zeros((n, 12), np.uint64)
+    tb = _u64(table)
+    work = np.zeros_like(tb)
+    host_lib.host_bn_comb_norm(_p(tb), _p(work), _p(pk), n, nw, _p(out))
+    plain = k.mb.comb_plain(table, k.torch.from_numpy(pk))
+    assert np.array_equal(out, _u64(plain))
+
+
+@pytest.mark.parametrize("n", [1, 40])
+def test_encode_body_matches_plain(host_lib, n, k):
+    """The kernels' first launch (input rows -> working rows) against
+    curve_bn.encode_jacobian_rows, identities and Z != 1 included."""
+    rows = _rows(k, n, 3 * n, identity_at=(0, 5))
+    out = np.zeros((n, 12), np.uint64)
+    host_lib.host_bn_encode(_p(_u64(rows)), _p(out), n)
+    assert np.array_equal(out, _u64(k.cbn.encode_jacobian_rows(rows)))
+
+
+FP_EDGE = [0, 1, 2, P // 2, P // 2 + 1, P - 2, P - 1]
+FP_BINARY = {"mul": lambda a, b: a * b * pow(R, -1, P),
+             "add": lambda a, b: a + b, "sub": lambda a, b: a - b}
+
+
+def _fp(v):
+    return np.array([(v >> (64 * i)) & ((1 << 64) - 1) for i in range(4)],
+                    np.uint64)
+
+
+def _fp_int(a):
+    return sum(int(x) << (64 * i) for i, x in enumerate(a))
+
+
+@pytest.mark.parametrize("op", sorted(FP_BINARY))
+def test_field_bodies_match_ints(host_lib, op):
+    """fp254.cuh on canonical edge values: canonical results, the residues
+    Python computes (a - b with a < b, sums that carry out of bit 256,
+    products of values near p)."""
+    fn = getattr(host_lib, f"host_fp_{op}")
+    vals = FP_EDGE + [random.Random(3).randrange(P) for _ in range(4)]
+    for a in vals:
+        for b in vals:
+            x, y, r = _fp(a), _fp(b), np.zeros(4, np.uint64)
+            fn(_p(x), _p(y), _p(r))
+            assert _fp_int(r) == FP_BINARY[op](a, b) % P, (a, b)
+
+
+def test_field_mul_b3_body_matches_ints(host_lib):
+    """fp_mul_b3 (four additions) is mont_mul_const by 9 R mod p: 9 a."""
+    for a in FP_EDGE + [random.Random(4).randrange(P) for _ in range(4)]:
+        x, r = _fp(a), np.zeros(4, np.uint64)
+        host_lib.host_fp_mul_b3(_p(x), _p(r))
+        assert _fp_int(r) == 9 * a % P, a
+
+
+def test_field_inverse_body_matches_pow(host_lib):
+    """fp_inv inverts a Montgomery-form value into Montgomery form."""
+    for v in FP_EDGE[1:]:
+        x, r = _fp(v * R % P), np.zeros(4, np.uint64)
+        host_lib.host_fp_inv(_p(x), _p(r))
+        assert _fp_int(r) == pow(v, P - 2, P) * R % P, v
+    x, r = _fp(0), np.ones(4, np.uint64)
+    host_lib.host_fp_inv(_p(x), _p(r))
+    assert _fp_int(r) == 0

@@ -39,6 +39,11 @@ def test_import_and_enable_native_load_no_jax_or_reference(native_built):
         "import verifiable_mpc_tpu_torch as vm\n"
         "from verifiable_mpc_tpu_torch.ac20 import circuit_sat_cb, pivot_gpu\n"
         "from verifiable_mpc_tpu_torch.ops import msm_cuda, ntt\n"
+        "from verifiable_mpc_tpu_torch.ops import curve_bn, field_bn254\n"
+        "from verifiable_mpc_tpu_torch.ops import msm_bn_cuda\n"
+        "from verifiable_mpc_tpu_torch.tools import code_to_qap\n"
+        "from verifiable_mpc_tpu_torch.trinocchio import (\n"
+        "    pynocchio, qap_fast, trinocchio)\n"
         "assert vm.enable_native()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"

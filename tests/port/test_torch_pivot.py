@@ -27,6 +27,8 @@ from verifiable_mpc_tpu_torch.fields import GF
 from verifiable_mpc_tpu_torch.groups import EllipticCurve
 from verifiable_mpc_tpu_torch.groups.edwards import EdwardsPoint
 
+from test_torch_bn_field import load_reference_native
+
 LOG2_MULS = 6
 SEED = 20261016
 PC = cs.PivotChoice.compressed
@@ -99,7 +101,7 @@ def reference_proof():
              ref_native.SCALAR_TIER, ref_native.REGISTERED,
              list(ref_poly._NTT_MUL_BACKEND))
     try:
-        assert ref.enable_native()
+        assert load_reference_native() is not None and ref.enable_native()
         gf, circuit, x, gens = _setup(ref_cb, ref_cs, RefGF, RefCurve, ref_rng)
         with ref_rng.deterministic(SEED + 1):
             proof = ref_cs.circuit_sat_prover(gens, circuit, x, gf,

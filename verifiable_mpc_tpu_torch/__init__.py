@@ -3,9 +3,10 @@
 Publicly verifiable proofs (AC20 compressed Sigma-protocols over Ed25519,
 BN256 and quadratic-residue groups) with the host protocol layer carried
 over from the JAX package and the device work in CUDA kernels written for
-NVIDIA Hopper (``csrc/``).  This slice carries the flagship path: generator
+NVIDIA Hopper (``csrc/``).  The port carries the flagship path (generator
 setup, prove and verify of AC20 circuit satisfiability with the compressed
-pivot over Ed25519.
+pivot over Ed25519) and the BN256 G1 path (Pinocchio key generation,
+proving and verifying; the KoE pivot's G1 work).
 
 Entry points: :func:`enable_gpu` installs the GPU kernels behind the
 dispatch layer; :func:`enable_native` the C++ host tier.  The package
@@ -17,26 +18,39 @@ __version__ = "0.1.0"
 from . import fields
 from . import groups
 
+# Batch sizes from which enable_gpu's backends take a call (below, the C++
+# host tier serves it), from chip_smoke.py's H100 runs (PERF.md): the
+# Ed25519 kernels and the BN comb win from 512; the BN MSM loses to the C++
+# tier up to 1024 points (K6's serial Horner thread and the host's point
+# and digit conversions cost it ~7 ms whatever the size), ties at 2048 and
+# wins from 4096.
+MIN_MSM_BATCH = 512
+BN_MIN_MSM_BATCH = 4096
 
-def enable_gpu(device=None, min_msm_batch: int = 512,
+
+def enable_gpu(device=None, min_msm_batch: int = MIN_MSM_BATCH,
                min_poly_len: int = 128):
-    """Install the Ed25519 MSM, MSM-async, fold and batch-exp backends and
-    the resident protocol-4 engine on ``device``.
+    """Install the GPU backends on ``device``: the Ed25519 MSM, MSM-async,
+    fold and batch-exp backends with the resident protocol-4 engine, and
+    the BN256 G1 MSM, fold and batch-exp backends.
 
-    On a CUDA device these are the kernels of ``csrc/*.cu`` (K1-K4);
+    On a CUDA device these are the kernels of ``csrc/*.cu`` (K1-K8);
     ``device="cpu"`` installs their plain PyTorch versions instead (the
     CPU tests use it).  With no argument the device is ``cuda`` and, when
     no card is present, this raises: nothing carries on on the CPU unasked.
 
-    Batches below ``min_msm_batch`` go to the C++ host tier, which also
-    serves the engine's sub-cutover tail.
+    Batches below ``min_msm_batch`` (BN MSMs: below
+    :data:`BN_MIN_MSM_BATCH`) go to the C++ host tier, which also serves
+    the engine's sub-cutover tail (a BN fold below it takes the host loop:
+    the C++ tier has no BN fold).
     """
     import torch
 
     from . import native
     from .ac20 import pivot_gpu
+    from .groups.bn256 import BNPoint
     from .groups.edwards import EdwardsPoint
-    from .ops import dispatch, msm_cuda, ntt
+    from .ops import dispatch, msm_bn_cuda, msm_cuda, ntt
 
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda":
@@ -55,19 +69,27 @@ def enable_gpu(device=None, min_msm_batch: int = 512,
     # tiered dispatch of the synchronous backends: below the batch
     # threshold the C++ tier serves the call (the compression tail, tiny
     # commitments)
-    def _tier(table, gpu_fn, native_fn, pick):
+    def _tier(table, cls, gpu_fn, native_fn, pick, threshold=min_msm_batch):
         def fn(*args):
-            if len(pick(args)) >= min_msm_batch:
+            if len(pick(args)) >= threshold:
                 return gpu_fn(*args)
             return native_fn(*args)
 
-        table[EdwardsPoint] = (fn, 8)
+        table[cls] = (fn, 8)
 
     first = lambda a: a[0]  # noqa: E731
-    _tier(dispatch._MSM_BACKENDS, msm_cuda.msm, native.ed_msm, first)
-    _tier(dispatch._FOLD_BACKENDS, msm_cuda.fold, native.ed_fold, first)
-    _tier(dispatch._BATCH_EXP_BACKENDS, msm_cuda.batch_exp_comb,
-          native.ed_batch_exp, lambda a: a[1])
+    exps = lambda a: a[1]  # noqa: E731
+    _tier(dispatch._MSM_BACKENDS, EdwardsPoint, msm_cuda.msm, native.ed_msm,
+          first)
+    _tier(dispatch._FOLD_BACKENDS, EdwardsPoint, msm_cuda.fold,
+          native.ed_fold, first)
+    _tier(dispatch._BATCH_EXP_BACKENDS, EdwardsPoint, msm_cuda.batch_exp_comb,
+          native.ed_batch_exp, exps)
+    _tier(dispatch._MSM_BACKENDS, BNPoint, msm_bn_cuda.msm, native.bn_msm,
+          first, BN_MIN_MSM_BATCH)
+    _tier(dispatch._BATCH_EXP_BACKENDS, BNPoint, msm_bn_cuda.batch_exp_comb,
+          native.bn_batch_exp, exps)
+    dispatch.register_fold_backend(BNPoint, msm_bn_cuda.fold, min_msm_batch)
     ntt.register(min_poly_len)
     return device
 
@@ -85,8 +107,13 @@ def enable_native(min_batch: int = 8, min_poly_len: int = 128):
         from .ops import ntt
 
         ntt.register(min_poly_len)
-        # the C++ tier replaces the GPU backends: the resident engine and
-        # the device encode cache step aside too
+        # the C++ tier replaces the GPU backends: the resident engine, the
+        # device encode cache and the BN fold (the C++ tier has none) step
+        # aside too
+        from .groups.bn256 import BNPoint
+        from .ops import dispatch
+
+        dispatch._FOLD_BACKENDS.pop(BNPoint, None)
         engine = sys.modules.get(__name__ + ".ac20.pivot_gpu")
         if engine is not None:
             engine.ENABLED = False

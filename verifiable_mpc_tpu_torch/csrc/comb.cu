@@ -10,6 +10,7 @@
 // Bound: integer multiplies (8 per nonzero window plus ~268 for the
 // normalization per exponent).
 
+#include "ed25519_kernels.cuh"
 #include "launch.cuh"
 
 __global__ void comb_norm_kernel(const uint64_t *table, const uint8_t *digits,

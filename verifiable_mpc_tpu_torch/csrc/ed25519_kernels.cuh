@@ -7,20 +7,12 @@
 //   point row    16 x u64: x, y, z, t, four u64 limbs each (the row format
 //                of native._pts_to_u64)
 //   pre row      16 x u64: Y+X, Y-X, 2dT, 2Z (precomputed form)
-//   packed digits u8 [nw/2][n]: byte r of column i holds window 2r in its
-//                low nibble and window 2r+1 in its high nibble, each as
-//                digit + 7 (signed digits in [-7, 8]); window 0 is the most
-//                significant (ops/msm_cuda.pack_digits).
+//   packed digits u8 [nw/2][n] (digits.cuh)
 
 #pragma once
 
+#include "digits.cuh"
 #include "fe25519.cuh"
-
-FE_FN int digit_at(const uint8_t *digits, int n, int w, int i) {
-  uint8_t byte = digits[(size_t)(w >> 1) * n + i];
-  int nib = (w & 1) ? (byte >> 4) : (byte & 15);
-  return nib - 7;
-}
 
 // K1 body (B1, msm_pallas._make_chunk_kernel): the window-w accumulator of
 // slice s.  The slice holds points i = s, s + S, s + 2S, ... (neighbouring

@@ -22,10 +22,12 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#ifndef FE_FN
 #if defined(__CUDACC__)
 #define FE_FN __host__ __device__ __forceinline__
 #else
 #define FE_FN static inline
+#endif
 #endif
 
 struct fe {

@@ -12,6 +12,7 @@
 // Bound: integer multiplies (about 2,400 field multiplies per generator,
 // a third of them in the normalization).
 
+#include "ed25519_kernels.cuh"
 #include "launch.cuh"
 
 struct Digits64 {

@@ -1,12 +1,15 @@
 // CPU build of the kernel bodies (g++): each entry point runs the per-thread
 // body of one CUDA kernel for every thread index in turn, so the field and
-// curve code of fe25519.cuh / ed25519_kernels.cuh can be checked against
-// the plain PyTorch versions without a GPU (tests/port/test_torch_cuda_host.py).
+// curve code of fe25519.cuh / ed25519_kernels.cuh and fp254.cuh /
+// bn254_kernels.cuh can be checked against the plain PyTorch versions
+// without a GPU (tests/port/test_torch_cuda_host.py,
+// tests/port/test_torch_bn_host.py).
 //
 //   g++ -O2 -shared -fPIC -o libhost_check.so host_check.cc
 
 #include <stdint.h>
 
+#include "bn254_kernels.cuh"
 #include "ed25519_kernels.cuh"
 
 extern "C" {
@@ -81,6 +84,94 @@ void host_fe_inv(const uint64_t *a, uint64_t *r) {
   fe_load(x, a);
   fe_inv(z, x);
   fe_store(r, z);
+}
+
+// the encoding launch of K5, K7 and K8: n input rows -> working rows
+void host_bn_encode(const uint64_t *in, uint64_t *out, int n) {
+  for (int i = 0; i < n; i++) bn_encode_one(in + (size_t)i * 12,
+                                            out + (size_t)i * 12);
+}
+
+// K5 then K6 for one batch: pts [n][12] input rows, work [n][12],
+// digits [nw/2][n] -> out [12]
+void host_bn_msm(const uint64_t *pts, uint64_t *work, const uint8_t *digits,
+                 int n, int nw, int S, uint64_t *acc, uint64_t *wsum,
+                 uint64_t *out) {
+  host_bn_encode(pts, work, n);
+  for (int w = 0; w < nw; w++)
+    for (int s = 0; s < S; s++)
+      bn_msm_accum_one(work, digits, acc + ((size_t)w * S + s) * 12, n, w,
+                       s, S);
+  for (int w = 0; w < nw; w++) {
+    g1p sum;
+    g1_identity(sum);
+    for (int s = 0; s < S; s++) {
+      g1p p, t;
+      g1_load(p, acc + ((size_t)w * S + s) * 12);
+      g1_add(t, sum, p);
+      sum = t;
+    }
+    g1_store(wsum + (size_t)w * 12, sum);
+  }
+  bn_msm_horner_one(wsum, out, nw);
+}
+
+// K7: gl, gr [n][12] input rows, work [2n][12]
+void host_bn_fold_norm(const uint64_t *gl, const uint64_t *gr,
+                       uint64_t *work, const uint8_t *cdig, int nw,
+                       uint64_t *out, int n) {
+  host_bn_encode(gl, work, n);
+  host_bn_encode(gr, work + (size_t)n * 12, n);
+  for (int i = 0; i < n; i++)
+    bn_fold_norm_one(work + (size_t)i * 12, work + (size_t)(n + i) * 12,
+                     cdig, nw, out + (size_t)i * 12);
+}
+
+// K8: table [nw*9][12] input rows, work [nw*9][12]
+void host_bn_comb_norm(const uint64_t *table, uint64_t *work,
+                       const uint8_t *digits, int n, int nw, uint64_t *out) {
+  host_bn_encode(table, work, nw * 9);
+  for (int i = 0; i < n; i++)
+    bn_comb_norm_one(work, digits, n, nw, i, out + (size_t)i * 12);
+}
+
+// BN field ops on single canonical values (4 u64 limbs each)
+void host_fp_mul(const uint64_t *a, const uint64_t *b, uint64_t *r) {
+  fp x, y, z;
+  fp_load(x, a);
+  fp_load(y, b);
+  fp_mul(z, x, y);
+  fp_store(r, z);
+}
+
+void host_fp_add(const uint64_t *a, const uint64_t *b, uint64_t *r) {
+  fp x, y, z;
+  fp_load(x, a);
+  fp_load(y, b);
+  fp_add(z, x, y);
+  fp_store(r, z);
+}
+
+void host_fp_sub(const uint64_t *a, const uint64_t *b, uint64_t *r) {
+  fp x, y, z;
+  fp_load(x, a);
+  fp_load(y, b);
+  fp_sub(z, x, y);
+  fp_store(r, z);
+}
+
+void host_fp_mul_b3(const uint64_t *a, uint64_t *r) {
+  fp x, z;
+  fp_load(x, a);
+  fp_mul_b3(z, x);
+  fp_store(r, z);
+}
+
+void host_fp_inv(const uint64_t *a, uint64_t *r) {
+  fp x, z;
+  fp_load(x, a);
+  fp_inv(z, x);
+  fp_store(r, z);
 }
 
 }  // extern "C"

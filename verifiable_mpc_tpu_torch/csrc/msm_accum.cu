@@ -16,6 +16,7 @@
 // shared by the windows is the first optimisation left for later
 // (PERF.md gives the distance from the bound).
 
+#include "ed25519_kernels.cuh"
 #include "launch.cuh"
 
 __global__ void msm_accum_kernel(const uint64_t *pts, const uint8_t *digits,

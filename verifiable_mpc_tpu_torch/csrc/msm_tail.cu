@@ -13,6 +13,7 @@
 // point operations plus a Fermat inversion: its latency, not the card's
 // throughput, sets the time at these sizes.
 
+#include "ed25519_kernels.cuh"
 #include "launch.cuh"
 
 #define REDUCE_THREADS 128

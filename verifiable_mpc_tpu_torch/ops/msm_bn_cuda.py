@@ -1,0 +1,319 @@
+"""BN256 G1 MSM, generator fold and fixed-base comb on the GPU.
+
+Counterpart of the JAX package's ``ops/bn_pallas.py`` (``msm``, ``fold``,
+``batch_exp_comb``, ``register``): the curve-generic kernels of
+``ops/msm_pallas.py`` with the BN adapter.  The device work is four kernels
+hand-written in CUDA (``csrc/bn_*.cu``, one source each, over
+``csrc/fp254.cuh`` and ``csrc/bn254_kernels.cuh``):
+
+=====  =====================  ==========================================
+K5     bn_msm_accumulate      4-bit signed-window accumulation (B1, BN)
+K6     bn_msm_tail            window reduction + Horner + normalize (B2)
+K7     bn_fold                g_l^c * g_r + normalize (B3, BN)
+K8     bn_comb                fixed-base comb + normalize (B5, BN)
+=====  =====================  ==========================================
+
+Each wrapper (:func:`msm_rows`, :func:`fold_rows`, :func:`comb_rows`)
+launches its kernels for a CUDA tensor and counts the launch in
+``msm_cuda.LAUNCHES``; for a CPU tensor it runs the plain PyTorch version
+beside it (:func:`msm_plain`, :func:`fold_plain`, :func:`comb_plain`).  A
+CUDA tensor never reaches a plain version, and a failed build or launch
+raises.
+
+Points travel as ``[n, 12]`` int64 input rows (``ops/curve_bn.py``):
+jacobian, standard form, as ``native._bn_pts_to_u64`` gives them.  K5, K7
+and K8 turn them into working rows (projective, Montgomery form) in a
+first launch, and every result leaves the kernels normalized in standard
+form, the identity as exactly ``BNPoint.identity``'s (1, 1, 0), which is
+an input row again.  Scalars are recoded against the BN group
+order (``bn256.ORDER``), never the Ed25519 default of the shared digit
+helpers.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..groups.bn256 import ORDER, BNPoint
+from . import curve_bn as cbn
+from . import msm_cuda as mc
+
+TABLE = mc.TABLE  # fold table 0..15
+TABLE_S = mc.TABLE_S  # signed-digit table 0..8
+ROW = cbn.ROW
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers (tensor level)
+# ---------------------------------------------------------------------------
+
+
+def msm_accumulate(points: torch.Tensor, digits: torch.Tensor,
+                   S: int) -> torch.Tensor:
+    """K5: window accumulators [B, nw, S, 12] (working rows, not
+    normalized) of B MSMs; slice s holds points s, s + S, s + 2S, ...
+    points [B, n, 12] input rows, digits [B, nw/2, n] packed signed
+    windows.  CPU: :func:`msm_accumulate_plain`."""
+    mc._check_rows(points, "points", 3, ROW)
+    B, n, _ = points.shape
+    mc._check_digits(digits, "digits", (B, digits.shape[1], n))
+    nw = 2 * digits.shape[1]
+    if not 0 < nw <= mc.NWINDOWS or not 0 < S:
+        raise ValueError(f"window count {nw} / slice count {S}")
+    if mc._same_device(points, digits).type == "cpu":
+        return msm_accumulate_plain(points, digits, S)
+    from . import _cuda_build as cb
+
+    work = torch.empty_like(points)
+    acc = torch.empty((B, nw, S, ROW), dtype=torch.int64,
+                      device=points.device)
+    cb.check(cb.lib().vmpc_cu_bn_msm_accum(
+        points.data_ptr(), work.data_ptr(), digits.data_ptr(),
+        acc.data_ptr(), B, n, nw, S, mc._stream(points)),
+        "bn_msm_accumulate")
+    mc.LAUNCHES["bn_msm_accumulate"] += 1
+    return acc
+
+
+def msm_tail(acc: torch.Tensor) -> torch.Tensor:
+    """K6: accumulators [B, nw, S, 12] -> [B, 12] normalized rows of
+    sum_w 16^(nw-1-w) sum_s acc[w, s].  CPU: :func:`msm_tail_plain`."""
+    mc._check_rows(acc, "acc", 4, ROW)
+    B, nw, S, _ = acc.shape
+    if mc._same_device(acc).type == "cpu":
+        return msm_tail_plain(acc)
+    from . import _cuda_build as cb
+
+    wsum = torch.empty((B, nw, ROW), dtype=torch.int64, device=acc.device)
+    out = torch.empty((B, ROW), dtype=torch.int64, device=acc.device)
+    cb.check(cb.lib().vmpc_cu_bn_msm_tail(
+        acc.data_ptr(), wsum.data_ptr(), out.data_ptr(), B, nw, S,
+        mc._stream(acc)), "bn_msm_tail")
+    mc.LAUNCHES["bn_msm_tail"] += 1
+    return out
+
+
+def msm_rows(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """sum_i d_i * P_i for B independent MSMs -> [B, 12] normalized rows
+    (K5 then K6)."""
+    return msm_tail(msm_accumulate(points, digits,
+                                   mc.slices_for(points.shape[1])))
+
+
+def fold_rows(gl: torch.Tensor, gr: torch.Tensor,
+              cdigits: np.ndarray) -> torch.Tensor:
+    """[gl_i^c * gr_i] as normalized rows; ``cdigits``: c's unsigned 4-bit
+    windows, most significant first (``msm_cuda.scalar_digits`` with the
+    BN order).  CUDA: K7; CPU: :func:`fold_plain`."""
+    mc._check_rows(gl, "gl", 2, ROW)
+    mc._check_rows(gr, "gr", 2, ROW)
+    if gl.shape != gr.shape:
+        raise ValueError("gl and gr differ in shape")
+    cdig = np.ascontiguousarray(cdigits, dtype=np.uint8).reshape(-1)
+    if len(cdig) > mc.NWINDOWS or cdig.max(initial=0) >= TABLE:
+        raise ValueError("fold digits must be <= 64 windows in [0, 15]")
+    if mc._same_device(gl, gr).type == "cpu":
+        return fold_plain(gl, gr, cdig)
+    from . import _cuda_build as cb
+
+    n = gl.shape[0]
+    work = torch.empty((2 * n, ROW), dtype=torch.int64, device=gl.device)
+    out = torch.empty((n, ROW), dtype=torch.int64, device=gl.device)
+    cb.check(cb.lib().vmpc_cu_bn_fold_norm(
+        gl.data_ptr(), gr.data_ptr(), work.data_ptr(), cdig.ctypes.data,
+        len(cdig), out.data_ptr(), n, mc._stream(gl)), "bn_fold")
+    mc.LAUNCHES["bn_fold"] += 1
+    return out
+
+
+def comb_rows(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """Fixed-base comb: table [nw*9, 12] input rows (row w*9+m = m *
+    16^(nw-1-w) * base), digits [nw/2, n] packed -> [n, 12] normalized
+    rows.  CUDA: K8; CPU: :func:`comb_plain`."""
+    mc._check_rows(table, "table", 2, ROW)
+    nw = table.shape[0] // TABLE_S
+    if nw * TABLE_S != table.shape[0] or nw % 2 or not 0 < nw <= mc.NWINDOWS:
+        raise ValueError(f"comb table of {table.shape[0]} rows")
+    mc._check_digits(digits, "digits", (nw // 2, digits.shape[-1]))
+    if mc._same_device(table, digits).type == "cpu":
+        return comb_plain(table, digits)
+    from . import _cuda_build as cb
+
+    n = digits.shape[1]
+    work = torch.empty_like(table)
+    out = torch.empty((n, ROW), dtype=torch.int64, device=table.device)
+    cb.check(cb.lib().vmpc_cu_bn_comb_norm(
+        table.data_ptr(), work.data_ptr(), digits.data_ptr(), n, nw,
+        out.data_ptr(), mc._stream(table)), "bn_comb")
+    mc.LAUNCHES["bn_comb"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# plain versions (tensor ops; the CPU path and the kernels' yardstick)
+# ---------------------------------------------------------------------------
+
+
+def _stack_points(pts, dim: int):
+    return tuple(torch.stack([p[c] for p in pts], dim=dim) for c in range(3))
+
+
+def msm_accumulate_plain(points: torch.Tensor, digits: torch.Tensor,
+                         S: int) -> torch.Tensor:
+    """Plain version of K5: the working rows of the points, the 0..8
+    table of each point, the signed selection per (window, point), summed
+    into the (window, slice) accumulators; points are taken in blocks of
+    whole rows of S."""
+    points = cbn.encode_jacobian_rows(points)
+    B, n, _ = points.shape
+    nw = 2 * digits.shape[1]
+    dev = points.device
+    J = -(-n // S)
+    d = mc.unpack_digits(digits)  # [B, nw, n]
+    if J * S > n:  # pad with identities and zero digits
+        ident = torch.tensor(cbn.IDENTITY_MONT_ROW, dtype=torch.int64,
+                             device=dev)
+        points = torch.cat([points, ident.expand(B, J * S - n, ROW)], dim=1)
+        d = torch.cat([d, d.new_zeros(B, nw, J * S - n)], dim=2)
+    acc = cbn.identity((B, nw, S), dev)
+    step = max(1, mc._PLAIN_BLOCK // (B * nw * S))
+    for j0 in range(0, J, step):
+        j1 = min(J, j0 + step)
+        m = (j1 - j0) * S
+        p = cbn.split_rows(points[:, j0 * S : j1 * S])  # [B, m, 16] each
+        tbl = [cbn.identity((B, m), dev), p]
+        for _ in range(2, TABLE_S):
+            tbl.append(cbn.add(tbl[-1], p))
+        db = d[:, :, j0 * S : j1 * S]  # [B, nw, m]
+        idx = db.abs().transpose(1, 2)[..., None].expand(B, m, nw, 16)
+        stacked = _stack_points(tbl, 2)  # [B, m, 9, 16]
+        sel = tuple(torch.gather(c, 2, idx).transpose(1, 2)
+                    for c in stacked)  # [B, nw, m, 16]
+        sel = cbn.neg_where(db < 0, sel)
+        part = mc._tree_sum(
+            tuple(c.unflatten(2, (j1 - j0, S)) for c in sel), 2, cbn)
+        acc = cbn.add(acc, part)
+    return cbn.join_rows(acc)
+
+
+def msm_tail_plain(acc: torch.Tensor) -> torch.Tensor:
+    """Plain version of K6: sum the slices of each window, Horner over the
+    windows, normalize."""
+    nw = acc.shape[1]
+    sums = mc._tree_sum(cbn.split_rows(acc), 2, cbn)  # [B, nw, 16]
+    return cbn.normalize_rows(mc._horner(sums, nw, cbn))
+
+
+def msm_plain(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5 + K6."""
+    return msm_tail_plain(
+        msm_accumulate_plain(points, digits, mc.slices_for(points.shape[1])))
+
+
+def fold_plain(gl: torch.Tensor, gr: torch.Tensor,
+               cdig: np.ndarray) -> torch.Tensor:
+    """Plain version of K7: the working rows of gl and gr, table 0..15 of
+    gl, Horner over c's unsigned windows, add gr, normalize."""
+    n = gl.shape[0]
+    dev = gl.device
+    g = cbn.split_rows(cbn.encode_jacobian_rows(gl))
+    tbl = [None, g]
+    for _ in range(2, TABLE):
+        tbl.append(cbn.add(tbl[-1], g))
+    acc = cbn.identity((n,), dev)
+    for d in cdig:
+        for _ in range(mc.WINDOW):
+            acc = cbn.dbl(acc)
+        if d:
+            acc = cbn.add(acc, tbl[int(d)])
+    return cbn.normalize_rows(
+        cbn.add(acc, cbn.split_rows(cbn.encode_jacobian_rows(gr))))
+
+
+def comb_plain(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """Plain version of K8: the table's working rows, select T[w][d_w(e_i)]
+    for every window, negate for d < 0, sum over the windows, normalize (in
+    blocks of exponents)."""
+    table = cbn.encode_jacobian_rows(table)
+    nw = 2 * digits.shape[0]
+    n = digits.shape[1]
+    d = mc.unpack_digits(digits)  # [nw, n]
+    base = torch.arange(nw, device=d.device)[:, None] * TABLE_S
+    step = max(1, mc._PLAIN_BLOCK // nw)
+    out = []
+    for i0 in range(0, n, step):
+        db = d[:, i0 : i0 + step]
+        m = db.shape[1]
+        rows = table[(base + db.abs()).reshape(-1)].reshape(nw, m, ROW)
+        sel = cbn.neg_where(db < 0, cbn.split_rows(rows))
+        out.append(cbn.normalize_rows(mc._tree_sum(sel, 0, cbn)))
+    return torch.cat(out, dim=0)
+
+
+# ---------------------------------------------------------------------------
+# point-level API (the dispatch backends)
+# ---------------------------------------------------------------------------
+
+
+def _digits(scalars):
+    """Packed signed digits of scalars (ints, negative ones included, or
+    field elements) reduced mod the BN order, and their window count."""
+    from .. import native
+
+    return mc.packed_digits(native._scalars_to_u64(list(scalars), ORDER),
+                            ORDER)
+
+
+def msm(points, scalars) -> BNPoint:
+    """prod points[i] ** scalars[i] (BN256 G1) through K5 + K6."""
+    assert len(points) == len(scalars)
+    pk, _nw = _digits(scalars)
+    digits = torch.from_numpy(pk).to(mc.DEVICE)
+    out = msm_rows(cbn.encode_points(points, mc.DEVICE)[None], digits[None])
+    return cbn.decode_rows(out)[0]
+
+
+def fold(g_l, g_r, c: int) -> list:
+    """[g_l[i] ** c * g_r[i]] (normalized) through K7."""
+    assert len(g_l) == len(g_r)
+    cdig = mc.scalar_digits([int(c)], ORDER)[:, 0]
+    out = fold_rows(cbn.encode_points(g_l, mc.DEVICE),
+                    cbn.encode_points(g_r, mc.DEVICE), cdig)
+    return cbn.decode_rows(out)
+
+
+_COMB_TABLES = {}  # (repr of the normalized base, nw, device) -> table
+
+
+def _comb_table_build(base, nw: int) -> list:
+    """Points MSB-first, row w holding d * (16^(nw-1-w) * base) for d =
+    0..8 (~nw * 8 host group operations, cached per base)."""
+    rows = []
+    base_w = base
+    for _ in range(nw):
+        row = [BNPoint.identity, base_w]
+        for _m in range(2, TABLE_S):
+            row.append(row[-1] * base_w)
+        rows.append(row)
+        eight = row[TABLE_S - 1]
+        base_w = eight * eight  # 16 * base_w
+    rows.reverse()
+    return [pt for row in rows for pt in row]
+
+
+def comb_table(base, nw: int, device=None) -> torch.Tensor:
+    device = torch.device(device or mc.DEVICE)
+    key = (repr(base.normalize()), nw, str(device))
+    hit = _COMB_TABLES.get(key)
+    if hit is None:
+        hit = _COMB_TABLES[key] = cbn.encode_points(
+            _comb_table_build(base, nw), device)
+    return hit
+
+
+def batch_exp_comb(base, exponents) -> list:
+    """[base ** e for e in exponents] (normalized) through K8."""
+    pk, nw = _digits(exponents)
+    out = comb_rows(comb_table(base, nw), torch.from_numpy(pk).to(mc.DEVICE))
+    return cbn.decode_rows(out)

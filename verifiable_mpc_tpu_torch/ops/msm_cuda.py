@@ -44,8 +44,10 @@ TABLE_S = (1 << (WINDOW - 1)) + 1  # 0..8: signed-digit table
 POINTS_PER_THREAD = 16  # K1: points one (window, slice) thread walks
 
 # kernel launches, counted by the wrappers where they launch (never by the
-# plain versions)
-LAUNCHES = {"msm_accumulate": 0, "msm_tail": 0, "fold": 0, "comb": 0}
+# plain versions); the bn_* ones by ops/msm_bn_cuda.py
+LAUNCHES = {"msm_accumulate": 0, "msm_tail": 0, "fold": 0, "comb": 0,
+            "bn_msm_accumulate": 0, "bn_msm_tail": 0, "bn_fold": 0,
+            "bn_comb": 0}
 
 DEVICE = None  # set by register()
 REGISTERED = False
@@ -209,10 +211,10 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check_rows(t: torch.Tensor, name: str, dims: int):
-    if t.dtype != torch.int64 or t.dim() != dims or t.shape[-1] != 16:
-        raise ValueError(f"{name}: expected int64 [..., 16] rows of rank "
-                         f"{dims}, got {t.dtype} {tuple(t.shape)}")
+def _check_rows(t: torch.Tensor, name: str, dims: int, width: int = 16):
+    if t.dtype != torch.int64 or t.dim() != dims or t.shape[-1] != width:
+        raise ValueError(f"{name}: expected int64 [..., {width}] rows of "
+                         f"rank {dims}, got {t.dtype} {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
 
@@ -342,29 +344,30 @@ def comb_rows(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _tree_sum(p, dim: int):
-    """Group sum of extended points along batch dim ``dim`` (pairwise)."""
+def _tree_sum(p, dim: int, law=ced):
+    """Group sum of points along batch dim ``dim`` (pairwise), under the
+    group law of module ``law`` (``curve_ed`` or ``curve_bn``)."""
     while p[0].shape[dim] > 1:
         m = p[0].shape[dim]
         if m % 2:
             shape = list(p[0].shape[:-1])
             shape[dim] = 1
-            pad = ced.identity(tuple(shape), p[0].device)
+            pad = law.identity(tuple(shape), p[0].device)
             p = tuple(torch.cat([a, b], dim=dim) for a, b in zip(p, pad))
         even = tuple(a.narrow(dim, 0, a.shape[dim] // 2 * 2) for a in p)
         lo = tuple(a.unflatten(dim, (-1, 2)).select(dim + 1, 0) for a in even)
         hi = tuple(a.unflatten(dim, (-1, 2)).select(dim + 1, 1) for a in even)
-        p = ced.add(lo, hi)
+        p = law.add(lo, hi)
     return tuple(a.select(dim, 0) for a in p)
 
 
-def _horner(sums, nw: int):
+def _horner(sums, nw: int, law=ced):
     """sum_w 16^(nw-1-w) S_w over window sums [..., nw] (MSB first)."""
-    h = ced.identity(sums[0].shape[:-2], sums[0].device)
+    h = law.identity(sums[0].shape[:-2], sums[0].device)
     for w in range(nw):
         for _ in range(WINDOW):
-            h = ced.dbl(h)
-        h = ced.add(h, tuple(c[..., w, :] for c in sums))
+            h = law.dbl(h)
+        h = law.add(h, tuple(c[..., w, :] for c in sums))
     return h
 
 
