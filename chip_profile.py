@@ -6,8 +6,9 @@
 Builds the chain circuit of ``chip_smoke.py``, sets up the generators on
 the card and proves twice with no profiler (the first prove of a process
 fills the host caches, the second is the steady time).  With ``--snark``
-the prove is Pinocchio's over BN256 G1 (the SparseQAP of the chain
-circuit, keys from generate_keys_fast, compute_proof_fast); without it,
+the prove is Pinocchio's over BN256 (the SparseQAP of the chain circuit,
+keys from generate_keys_fast, compute_proof_fast: seven G1 MSMs and the
+twist MSM on the card); without it,
 the AC20 compressed-pivot prove over Ed25519.  Then it proves twice more;
 every proof is verified outside the timed and profiled parts:
 
@@ -74,21 +75,24 @@ def ac20_path(vm, log2_muls: int):
 
 
 def snark_path(mc, log2_muls: int):
-    """(prove, check) of Pinocchio over BN256 G1: compute_proof_fast with
-    fresh deltas, and its verify, which also asserts that K5 and K6 ran."""
+    """(prove, check) of Pinocchio over BN256: compute_proof_fast with
+    fresh deltas, and its verify, which also asserts that K5 and the
+    twist's K9 ran."""
     import verifiable_mpc_tpu_torch.trinocchio.pynocchio as pyn
 
     g1, g2, gf, qap = smoke.snark_setup(log2_muls)
     evalkey, verikey = smoke.snark_keygen(g1, g2, qap)
     c = qap.calculate_witness([gf(3)])
-    seen = [0]
+    keys = ("bn_msm_accumulate", "bn2_msm_accumulate")
+    seen = {}
 
     def prove():
-        seen[0] = mc.LAUNCHES["bn_msm_accumulate"]
+        seen.update((k, mc.LAUNCHES[k]) for k in keys)
         return smoke.snark_prove(g1, qap, c, evalkey)
 
     def check(proof):
-        assert mc.LAUNCHES["bn_msm_accumulate"] > seen[0], "K5 never ran"
+        for k in keys:
+            assert mc.LAUNCHES[k] > seen[k], f"{k} never ran"
         ver = pyn.verify(qap, verikey, proof, c[: qap.out_ix + 1])
         assert all(ver.values()), f"proof did not verify: {ver}"
 
@@ -113,7 +117,7 @@ def device_table(torch, prof):
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--snark", action="store_true",
-                    help="profile the Pinocchio prove over BN256 G1")
+                    help="profile the Pinocchio prove over BN256")
     ap.add_argument("--log2-muls", type=int, default=None)
     ap.add_argument("--out", help="directory for the full host table")
     args = ap.parse_args(argv)

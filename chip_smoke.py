@@ -14,12 +14,16 @@ Phases (each one fatal; any failure exits non-zero and prints no result):
    on the card: K1 + K2 (MSM), K3 (fold), K4 (comb) over Ed25519 and
    K5 + K6 (MSM), K7 (fold), K8 (comb) over BN256 G1 at n in {1, 300,
    4096} with edge scalars (and identity inputs for BN), also against the
-   C++ tier; then each kernel alone at the shapes its path gives it, timed
+   C++ tier, and K9 + K10 (MSM), K11 (batch-exp) and K12 (fold) over the
+   BN256 twist the same way (native.bn2_msm, native.bn2_batch_exp, the host
+   law); then each kernel alone at the shapes its path gives it, timed
    with CUDA events beside its plain version and its bound; the tolerance
    is exact equality of canonical values;
 4. the Ed25519 MSM at 2^16 against the port's C++ tier
    (native.ed_msm_arr); the BN MSM and comb at 2^16 against native.bn_msm /
-   bn_batch_exp, and both at the BN tier's threshold sizes;
+   bn_batch_exp, and both at the BN tier's threshold sizes; the twist MSM
+   and batch-exp against native.bn2_msm / bn2_batch_exp at the twist tier
+   sizes and at 2^17 (the sweep behind BN2_MIN_BATCH);
 5. the engine cut-over: one protocol-4 round on the card and on the C++
    tier per half size;
 6. the Ed25519 flagship: enable_gpu(), a 2^16-multiplication chain
@@ -28,12 +32,15 @@ Phases (each one fatal; any failure exits non-zero and prints no result):
    and every kernel of that path and the resident engine must have run;
 7. parity at 2^12 multiplications: the GPU prove and the enable_native()
    prove under one seed give identical (normalized) proof bytes;
-8. the BN256 G1 path: Pinocchio at 2^16 multiplications with
-   enable_gpu() (SparseQAP, generate_keys_fast, calculate_witness,
-   compute_proof_fast, verify), seconds and launches per stage, K8 in the
-   key generation and K5 + K6 in the prove; at 2^10, the enable_gpu() and
-   enable_native() evaluation keys and proofs equal once normalized; the
-   KoE pivot at 2^10 (K8 in its setup, K5 + K6 in its prove);
+8. the BN256 path: Pinocchio at 2^16 multiplications with enable_gpu()
+   (SparseQAP, generate_keys_fast, calculate_witness, compute_proof_fast,
+   verify), seconds and launches per stage, K8 and the twist's K11 in the
+   key generation and K5 + K6 and the twist's K9 + K10 in the prove; at
+   2^10, with the BN and twist thresholds lowered so that K5, K6 and
+   K8-K11 serve every call, the enable_gpu() and enable_native()
+   evaluation keys (twist entries included) and proofs equal once
+   normalized; the KoE pivot at 2^10 (K8 in its setup, K5 + K6 in its
+   prove);
 9. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -64,6 +71,7 @@ SNARK_SHAPE = 1 << (SNARK_LOG2_MULS + 1)
 SNARK_PARITY_LOG2_MULS = 10
 KOE_LOG2_MULS = 10
 BN_TIER_SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384)
+BN2_TIER_SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384, SNARK_SHAPE)
 CUTOVER_HALVES = tuple(1 << k for k in range(7, 15))
 
 # H100 SXM peaks used for the bounds (NVIDIA data sheet; the card may run
@@ -95,6 +103,21 @@ BN_INV = 255 * BN_S + 124 * BN_M  # p - 2: 255 squarings, 124 multiplies
 BN_NORM_EACH = 6 * BN_M  # batch inversion's 3, Z^-1 out of Montgomery
 #                          form, x, y
 
+# BN256 twist (csrc/fp2_254.cuh, csrc/bn2_kernels.cuh), in the same 32-bit
+# multiplies: a GF(p^2) product is 3 M (Karatsuba), a GF(p^2) square 2 M,
+# a product by 3b' (a full GF(p^2) constant) 3 M.  The complete add is 12
+# products and 2 by 3b' (42 M), the doubling 6 products, 2 squares and one
+# by 3b' (25 M), an input row's encoding 6 M into Montgomery form plus
+# (X Z, Z^2, Z^3) (14 M).  An inversion in GF(p^2) is the norm's 2 S, one
+# inversion in GF(p) and 2 M; batch normalization is 3 GF(p^2) products a
+# point, Z^-1 out of Montgomery form (2 M), x and y (6 M).
+BN2_ADD = 42 * BN_M
+BN2_DBL = 25 * BN_M
+BN2_ENC = 14 * BN_M
+BN2_INV = 2 * BN_S + BN_INV + 2 * BN_M
+BN2_NORM_EACH = 17 * BN_M
+TABLE_ROWS_BN2 = 9  # K11's table: the base's multiples 0..8
+
 DEV = "cuda"
 
 SOURCES = {
@@ -106,9 +129,16 @@ SOURCES = {
     "bn_msm_tail": "verifiable_mpc_tpu_torch/csrc/bn_msm_tail.cu",
     "bn_fold": "verifiable_mpc_tpu_torch/csrc/bn_fold.cu",
     "bn_comb": "verifiable_mpc_tpu_torch/csrc/bn_comb.cu",
+    "bn2_msm_accumulate": "verifiable_mpc_tpu_torch/csrc/bn2_msm_accum.cu",
+    "bn2_msm_tail": "verifiable_mpc_tpu_torch/csrc/bn2_msm_tail.cu",
+    "bn2_bexp": "verifiable_mpc_tpu_torch/csrc/bn2_bexp.cu",
+    "bn2_fold": "verifiable_mpc_tpu_torch/csrc/bn2_fold.cu",
 }
 
 _BN = " with the BN adapter verifiable_mpc_tpu/ops/bn_pallas.py:54,88"
+_BN2 = (" with the twist adapter verifiable_mpc_tpu/ops/bn2_pallas.py:118,"
+        "143")
+BN_PATH = ("bn_", "bn2_")  # launch-count keys of the Pinocchio path
 REPLACES = {
     "msm_accumulate": "verifiable_mpc_tpu/ops/msm_pallas.py:555",
     "msm_tail": "verifiable_mpc_tpu/ops/msm_pallas.py:616",
@@ -118,6 +148,10 @@ REPLACES = {
     "bn_msm_tail": "verifiable_mpc_tpu/ops/msm_pallas.py:616" + _BN,
     "bn_fold": "verifiable_mpc_tpu/ops/msm_pallas.py:929" + _BN,
     "bn_comb": "verifiable_mpc_tpu/ops/msm_pallas.py:1284" + _BN,
+    "bn2_msm_accumulate": "verifiable_mpc_tpu/ops/msm_pallas.py:555" + _BN2,
+    "bn2_msm_tail": "verifiable_mpc_tpu/ops/msm_pallas.py:616" + _BN2,
+    "bn2_bexp": "verifiable_mpc_tpu/ops/msm_pallas.py:1129" + _BN2,
+    "bn2_fold": "verifiable_mpc_tpu/ops/msm_pallas.py:929" + _BN2,
 }
 ED_KERNELS = ("msm_accumulate", "msm_tail", "fold", "comb")
 
@@ -798,6 +832,209 @@ def bn_bench(torch, native, mc, mb, rng):
             f"{min(cc) * 1e3:.3f} ms")
 
 
+# ---------------------------------------------------------------------------
+# BN256 twist (G2): kernels K9-K12 and the C++ tier
+# ---------------------------------------------------------------------------
+
+
+def bn2_points(native, n: int, rng, identity_at=(), rescale=True):
+    """n twist points made by the C++ tier; with ``rescale`` every third
+    one in jacobian coordinates with Z != 1 (identities where asked)."""
+    from verifiable_mpc_tpu_torch.groups.bn256 import (ORDER, P, BNTwistPoint,
+                                                       GFp2)
+
+    pts = native.bn2_batch_exp(BNTwistPoint.generator,
+                               [rng.randrange(1, ORDER) for _ in range(n)])
+    for i in range(1, n, 3) if rescale else ():
+        lam = GFp2(rng.randrange(2, P), rng.randrange(P))
+        q = pts[i].normalize()
+        pts[i] = BNTwistPoint(q.x * lam * lam, q.y * lam * lam * lam, lam,
+                              check=False)
+    for i in identity_at:
+        if i < n:
+            pts[i] = BNTwistPoint.identity
+    return pts
+
+
+def bn2_host_rows(native, points) -> np.ndarray:
+    """Normalized rows of host twist points: what K10-K12 return."""
+    from verifiable_mpc_tpu_torch.groups.bn256 import BNTwistPoint
+
+    return np.ascontiguousarray(
+        native._bn2_pts_to_u64(BNTwistPoint.batch_normalize(list(points))))
+
+
+def host_err(torch, got, host) -> float:
+    """max_abs_err of kernel rows against host rows."""
+    return max_abs_err(torch, got, torch.from_numpy(
+        np.array(host, dtype=np.uint64).view(np.int64)).to(got.device))
+
+
+def check_small_bn2(torch, native, mc, mb2, cb2, rng):
+    """K9 + K10, K11, K12 against their plain versions and the C++ tier (the
+    host law for a few fold elements) at the CHECK_SIZES, with the edge
+    scalars, identity inputs and points with Z != 1 in every batch of more
+    than a few points; max_abs_err on the canonical rows."""
+    from verifiable_mpc_tpu_torch.groups.bn256 import ORDER
+
+    dev = torch.device(DEV)
+    for n in CHECK_SIZES:
+        pts = bn2_points(native, n, rng, identity_at=(3, 200))
+        sc = (edge_scalars(ORDER) + [rng.randrange(ORDER)
+                                     for _ in range(n)])[:n]
+        pk, nw = mc.packed_digits(native._scalars_to_u64(sc, ORDER), ORDER)
+        pts_t = cb2.encode_points(pts, dev)
+        dig = torch.from_numpy(pk).to(dev)
+        got = mb2.msm_rows(pts_t[None], dig[None])
+        errs = [max_abs_err(torch, got, mb2.msm_plain(pts_t[None],
+                                                      dig[None])),
+                host_err(torch, got, bn2_host_rows(
+                    native, [native.bn2_msm(pts, sc)]))]
+
+        base = bn2_points(native, 1, rng)[0]
+        got = mb2.bexp_rows(mb2.bexp_table(base, dev), dig)
+        errs += [max_abs_err(torch, got, mb2.bexp_plain(
+                     mb2.bexp_table(base, dev), dig)),
+                 host_err(torch, got, bn2_host_rows(
+                     native, native.bn2_batch_exp(base, sc)))]
+
+        gr = bn2_points(native, n, rng, identity_at=(0, 7))
+        c = rng.randrange(ORDER)
+        cdig = mc.scalar_digits([c], ORDER)[:, 0]
+        gr_t = cb2.encode_points(gr, dev)
+        got = mb2.fold_rows(pts_t, gr_t, cdig)
+        host = [native.bn2_msm([a, b], [c, 1]) for a, b in zip(pts, gr)]
+        law = [a ** c * b for a, b in zip(pts[:8], gr[:8])]
+        errs += [max_abs_err(torch, got, mb2.fold_plain(
+                     pts_t, gr_t, cdig.astype(np.uint8))),
+                 host_err(torch, got, bn2_host_rows(native, host)),
+                 host_err(torch, got[: len(law)], bn2_host_rows(native, law))]
+        torch.cuda.synchronize()
+        log(f"   n={n}: max_abs_err K9+K10 plain {errs[0]} c++ {errs[1]}; "
+            f"K11 plain {errs[2]} c++ {errs[3]}; K12 plain {errs[4]} c++ "
+            f"{errs[5]} host law {errs[6]}")
+        assert not any(errs), f"twist kernels differ at n={n}: {errs}"
+
+
+def check_main_shapes_bn2(torch, native, mc, mb2, cb2, rng, n: int):
+    """K9-K12 alone at the shapes of the Pinocchio path (the twist MSM of n
+    points, the twist fill's batch-exp of n exponents, a fold of n): result
+    against the plain version on the same inputs, CUDA-event time, plain
+    time, bound."""
+    from verifiable_mpc_tpu_torch.groups.bn256 import ORDER, BNTwistPoint
+
+    dev = torch.device(DEV)
+    stats = {}
+    pts = bn2_points(native, 2 * n, rng, identity_at=(5,))
+    g = cb2.encode_points(pts, dev)
+    sc = edge_scalars(ORDER) + [rng.randrange(ORDER) for _ in range(n - 7)]
+    pk, nw = mc.packed_digits(native._scalars_to_u64(sc, ORDER), ORDER)
+    dig = torch.from_numpy(pk).to(dev)[None]
+    P = g[:n][None]
+    S = mc.slices_for(n)
+    acc = mb2.msm_accumulate(P, dig, S)
+    acc_plain, k9_plain = cuda_once(
+        torch, lambda: mb2.msm_accumulate_plain(P, dig, S))
+    norm = lambda a: cb2.normalize_rows(cb2.split_rows(a))  # noqa: E731
+    k9_err = max_abs_err(torch, norm(acc), norm(acc_plain))
+    assert k9_err == 0.0, "K9 accumulators differ from the plain version"
+    out = mb2.msm_tail(acc)
+    out_plain, k10_plain = cuda_once(torch, lambda: mb2.msm_tail_plain(acc))
+    k10_err = max_abs_err(torch, out, out_plain)
+    assert k10_err == 0.0, "K10 differs from the plain version"
+    d = mc.unpack_digits(dig)  # [1, nw, n]
+    stats["bn2_msm_accumulate"] = dict(
+        err=k9_err, ms=cuda_ms(torch, lambda: mb2.msm_accumulate(P, dig, S)),
+        plain_ms=k9_plain, shape=f"B=1 n={n} nw={nw} S={S}",
+        bytes=n * 192 + dig.numel() + nw * S * 192,
+        muls=(n * (BN2_ENC + 7 * BN2_ADD)
+              + BN2_ADD * int((d != 0).sum())))
+    stats["bn2_msm_tail"] = dict(
+        err=k10_err, ms=cuda_ms(torch, lambda: mb2.msm_tail(acc)),
+        plain_ms=k10_plain, shape=f"B=1 nw={nw} S={S}",
+        bytes=nw * S * 192 + 192,
+        muls=(nw * (S - 1) * BN2_ADD + (nw - 1) * 4 * BN2_DBL + nw * BN2_ADD
+              + BN2_NORM_EACH + BN2_INV))
+
+    exps = [0] + [rng.randrange(1, ORDER) for _ in range(n - 1)]
+    pk11, nw11 = mc.packed_digits(native._scalars_to_u64(exps, ORDER), ORDER)
+    dig11 = torch.from_numpy(pk11).to(dev)
+    table = mb2.bexp_table(BNTwistPoint.generator, dev)
+    got = mb2.bexp_rows(table, dig11)
+    plain, k11_plain = cuda_once(torch, lambda: mb2.bexp_plain(table, dig11))
+    k11_err = max_abs_err(torch, got, plain)
+    assert k11_err == 0.0, "K11 differs from the plain version"
+    d11 = mc.unpack_digits(dig11).cpu().numpy()  # [nw, n]
+    nzw = d11 != 0
+    first = np.where(nzw.any(axis=0), nzw.argmax(axis=0), nw11 - 1)
+    stats["bn2_bexp"] = dict(
+        err=k11_err, ms=cuda_ms(torch, lambda: mb2.bexp_rows(table, dig11)),
+        plain_ms=k11_plain, shape=f"n={n} nw={nw11}",
+        bytes=table.numel() * 8 + dig11.numel() + n * 192,
+        muls=(TABLE_ROWS_BN2 * BN2_ENC
+              + int((nw11 - 1 - first).sum()) * 4 * BN2_DBL
+              + int(nzw.sum()) * BN2_ADD + n * BN2_NORM_EACH + BN2_INV))
+
+    gl, gr = g[:n], g[n:]
+    c = rng.randrange(ORDER)
+    cdig = mc.scalar_digits([c], ORDER)[:, 0]
+    got = mb2.fold_rows(gl, gr, cdig)
+    plain, k12_plain = cuda_once(
+        torch, lambda: mb2.fold_plain(gl, gr, cdig.astype(np.uint8)))
+    k12_err = max_abs_err(torch, got, plain)
+    assert k12_err == 0.0, "K12 differs from the plain version"
+    nzc = int((cdig != 0).sum())
+    firstc = int(np.flatnonzero(cdig)[0])
+    stats["bn2_fold"] = dict(
+        err=k12_err, ms=cuda_ms(torch, lambda: mb2.fold_rows(gl, gr, cdig)),
+        plain_ms=k12_plain, shape=f"n={n} nw=64", bytes=3 * n * 192,
+        muls=(n * (2 * BN2_ENC + max(int(cdig.max()) - 1, 0) * BN2_ADD
+                   + (len(cdig) - 1 - firstc) * 4 * BN2_DBL + nzc * BN2_ADD
+                   + BN2_ADD + BN2_NORM_EACH) + BN2_INV))
+    for name, st in stats.items():
+        st["bound_ms"], st["bound_by"] = bound(torch, st["bytes"], st["muls"],
+                                               per_mul=1)
+        log(f"   {name} [{st['shape']}]: {st['ms']:.3f} ms, plain "
+            f"{st['plain_ms']:.1f} ms, bound {st['bound_ms']:.4f} ms "
+            f"({st['bound_by']}), 32-bit multiplies {st['muls']}, "
+            f"max_abs_err {st['err']}")
+    return stats
+
+
+def bn2_bench(torch, native, mb2, rng):
+    """The twist MSM and batch-exp as the dispatch calls them (host points
+    and scalars in, host points out) on the card and on the C++ tier, best
+    of 3 with distinct scalars every rep, at the tier sizes and at the
+    path's 2^17: the sweep that sets BN2_MIN_BATCH."""
+    from verifiable_mpc_tpu_torch.groups.bn256 import ORDER
+
+    pts = bn2_points(native, max(BN2_TIER_SIZES), rng, rescale=False)
+    base = pts[1]
+    for size in BN2_TIER_SIZES:
+        gm, cm, gb, cb_ = [], [], [], []
+        for rep in range(4):  # rep 0 warms up
+            sc = [rng.randrange(ORDER) for _ in range(size)]
+            t0 = time.perf_counter()
+            a = mb2.msm(pts[:size], sc)
+            t1 = time.perf_counter()
+            b = native.bn2_msm(pts[:size], sc)
+            t2 = time.perf_counter()
+            ba = mb2.batch_exp(base, sc)
+            t3 = time.perf_counter()
+            bb = native.bn2_batch_exp(base, sc)
+            t4 = time.perf_counter()
+            assert a == b, f"GPU twist MSM != C++ at n={size}"
+            assert ba == bb, f"GPU twist batch-exp != C++ at n={size}"
+            if rep:
+                gm.append(t1 - t0)
+                cm.append(t2 - t1)
+                gb.append(t3 - t2)
+                cb_.append(t4 - t3)
+        log(f"   bn2 tier n={size}: msm gpu {min(gm) * 1e3:.3f} ms, c++ "
+            f"{min(cm) * 1e3:.3f} ms; batch-exp gpu {min(gb) * 1e3:.3f} ms, "
+            f"c++ {min(cb_) * 1e3:.3f} ms")
+
+
 def chain_code(n_muls: int) -> str:
     """x_{i+1} = x_i * x_i + 1 chain with n_muls mul gates, one per line
     (the circuit of bench_snark.chain_code)."""
@@ -853,7 +1090,7 @@ def pinocchio(torch, vm, mc):
         torch.cuda.synchronize()
         secs[name] = time.perf_counter() - t0
         per_stage[name] = {k: mc.LAUNCHES[k] - before[k] for k in before
-                           if k.startswith("bn_")}
+                           if k.startswith(BN_PATH)}
         return out
 
     mc.reset_launches()
@@ -872,23 +1109,36 @@ def pinocchio(torch, vm, mc):
         log(f"   launches in {name}: {counts}")
     log(f"   verification {ver}; launches {launches}")
     assert all(ver.values()), f"Pinocchio proof did not verify: {ver}"
-    assert per_stage["keygen"]["bn_comb"] > 0, "K8 never ran in keygen"
-    for k in ("bn_msm_accumulate", "bn_msm_tail"):
+    for k in ("bn_comb", "bn2_bexp"):
+        assert per_stage["keygen"][k] > 0, f"{k} never ran in keygen"
+    for k in ("bn_msm_accumulate", "bn_msm_tail", "bn2_msm_accumulate",
+              "bn2_msm_tail"):
         assert per_stage["prove"][k] > 0, f"{k} never ran in the prove"
     return launches
 
 
 def pinocchio_parity(torch, vm, mc):
     """At 2^10 multiplications, under one seed: the enable_gpu() and the
-    enable_native() evaluation keys and proofs, normalized, are equal."""
+    enable_native() evaluation keys (twist entries included) and proofs,
+    normalized, are equal.  The GPU run lowers the BN and twist thresholds
+    to MIN_MSM_BATCH, so that at this size (about 2^11 key entries) every
+    kernel of the path serves its calls and is held against the C++ tier;
+    enable_gpu() is installed with its defaults again afterwards."""
     from verifiable_mpc_tpu_torch import rng, serialization
 
     g1, g2, gf, qap = snark_setup(SNARK_PARITY_LOG2_MULS)
     c = qap.calculate_witness([gf(3)])
+    path = ("bn_msm_accumulate", "bn_msm_tail", "bn_comb",
+            "bn2_msm_accumulate", "bn2_msm_tail", "bn2_bexp")
     out = {}
     for backend in ("gpu", "native"):
         if backend == "gpu":
-            vm.enable_gpu(DEV)
+            saved = (vm.BN_MIN_MSM_BATCH, vm.BN2_MIN_BATCH)
+            vm.BN_MIN_MSM_BATCH = vm.BN2_MIN_BATCH = vm.MIN_MSM_BATCH
+            try:
+                vm.enable_gpu(DEV)
+            finally:
+                vm.BN_MIN_MSM_BATCH, vm.BN2_MIN_BATCH = saved
         else:
             vm.enable_native()
         mc.reset_launches()
@@ -896,9 +1146,8 @@ def pinocchio_parity(torch, vm, mc):
             evalkey, _verikey = snark_keygen(g1, g2, qap)
         with rng.deterministic(2029):
             proof = snark_prove(g1, qap, c, evalkey)
-        launched = sum(v for k, v in mc.LAUNCHES.items()
-                       if k.startswith("bn_"))
-        assert (launched > 0) == (backend == "gpu"), (backend, mc.LAUNCHES)
+        ran = [mc.LAUNCHES[k] > 0 for k in path]
+        assert ran == [backend == "gpu"] * len(path), (backend, mc.LAUNCHES)
         out[backend] = (serialization.dumps(canonical(evalkey)),
                         serialization.dumps(canonical(proof)))
     vm.enable_gpu(DEV)
@@ -906,7 +1155,8 @@ def pinocchio_parity(torch, vm, mc):
     assert out["gpu"][1] == out["native"][1], "proofs differ"
     log(f"   2^{SNARK_PARITY_LOG2_MULS} muls: evaluation key "
         f"({len(out['gpu'][0])} bytes) and proof ({len(out['gpu'][1])} bytes)"
-        " identical to the C++ tier's, normalized")
+        " identical to the C++ tier's, normalized (GPU run: "
+        + ", ".join(path) + " launched)")
 
 
 def koe(torch, vm, mc):
@@ -937,7 +1187,8 @@ def koe(torch, vm, mc):
     t2 = time.perf_counter()
     ver = cs.circuit_sat_verifier(proof, gens, circuit, gf, pc)
     t3 = time.perf_counter()
-    launches = {k: v for k, v in mc.LAUNCHES.items() if k.startswith("bn_")}
+    launches = {k: v for k, v in mc.LAUNCHES.items()
+                if k.startswith(BN_PATH)}
     log(f"   KoE 2^{KOE_LOG2_MULS} muls (vector length {g_length}): "
         f"generators {t1 - t0:.3f} s, prove {t2 - t1:.3f} s, verify "
         f"{t3 - t2:.3f} s; verification {ver}; launches {launches}")
@@ -958,7 +1209,9 @@ def main() -> int:
     from verifiable_mpc_tpu_torch import native
     from verifiable_mpc_tpu_torch.ops import _cuda_build
     from verifiable_mpc_tpu_torch.ops import curve_bn as cbn
+    from verifiable_mpc_tpu_torch.ops import curve_bn2 as cb2
     from verifiable_mpc_tpu_torch.ops import curve_ed as ced
+    from verifiable_mpc_tpu_torch.ops import msm_bn2_cuda as mb2
     from verifiable_mpc_tpu_torch.ops import msm_bn_cuda as mb
     from verifiable_mpc_tpu_torch.ops import msm_cuda as mc
 
@@ -977,6 +1230,7 @@ def main() -> int:
     with Phase("kernels against their plain versions, small n"):
         check_small(torch, native, mc, ced, rng)
         check_small_bn(torch, native, mc, mb, cbn, rng)
+        check_small_bn2(torch, native, mc, mb2, cb2, rng)
     g_half = 1 << (FLAGSHIP_LOG2_MULS + 1)  # round 0 of a 2^18 vector
     with Phase("kernels at the flagship's shapes"):
         stats = check_main_shapes(torch, native, mc, ced, rng, g_half,
@@ -984,10 +1238,15 @@ def main() -> int:
     with Phase("BN kernels at the Pinocchio path's shapes"):
         stats.update(check_main_shapes_bn(torch, native, mc, mb, cbn, rng,
                                           SNARK_SHAPE))
+    with Phase("twist kernels at the Pinocchio path's shapes"):
+        stats.update(check_main_shapes_bn2(torch, native, mc, mb2, cb2, rng,
+                                           SNARK_SHAPE))
     with Phase(f"msm 2^{MSM_BENCH_LOG2} against the C++ tier"):
         msm_bench(torch, native, mc, ced, rng)
     with Phase("BN msm and comb against the C++ tier"):
         bn_bench(torch, native, mc, mb, rng)
+    with Phase("twist msm and batch-exp against the C++ tier"):
+        bn2_bench(torch, native, mb2, rng)
     with Phase("engine cut-over"):
         cutover(torch, native, mc, ced, rng)
     with Phase(f"flagship 2^{FLAGSHIP_LOG2_MULS}"):
@@ -1002,7 +1261,7 @@ def main() -> int:
         koe(torch, vm, mc)
 
     for name in SOURCES:
-        if name.startswith("bn_"):
+        if name.startswith(BN_PATH):
             launches[name] = bn_launches[name]
     kernels = [
         {

@@ -52,30 +52,45 @@ def load_reference_native():
     return ref_native.load()
 
 
+_BUILDS = []
+
+
+def start_builds():
+    """Start the builds of the two C++ tiers that the port's tests load
+    (the port's, and the JAX package's with its own flags), once per
+    process, in threads: the first modules of tests/port need neither, so
+    the builds run beside their eager JAX compiles."""
+    if not _BUILDS:
+        _BUILDS.extend(threading.Thread(target=f)
+                       for f in (native.load, load_reference_native))
+        for b in _BUILDS:
+            b.start()
+
+
+def join_builds():
+    for b in _BUILDS:
+        b.join()
+
+
 @pytest.fixture(scope="module")
 def tfp():
     """(torch, ops.field_bn254), imported here and not at collection:
     every xdist worker collects this file, and the CPU suite runs close to
     the host's memory limit (torch adds ~170 MB to a process).
 
-    This is the first module of tests/port, so it also starts the builds
-    of the two C++ tiers that the next modules load (the port's and the
-    JAX package's, each a g++ run on a fresh checkout): they run beside
-    this module's eager JAX compiles, and are joined when it ends."""
+    Its module needs no C++ tier, so it starts their builds
+    (:func:`start_builds`, if an earlier module has not) and joins them
+    when it ends."""
     import torch
 
     from verifiable_mpc_tpu_torch.ops import field_bn254 as fp
 
-    builds = [threading.Thread(target=f)
-              for f in (native.load, load_reference_native)]
-    for b in builds:
-        b.start()
+    start_builds()
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield torch, fp
     torch.set_num_threads(n)
-    for b in builds:
-        b.join()
+    join_builds()
 
 
 def _port(tfp, vals):

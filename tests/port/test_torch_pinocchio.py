@@ -1,11 +1,12 @@
-"""The BN256 G1 slice on the CPU: Pinocchio key generation and proving of a
+"""The BN256 slices on the CPU: Pinocchio key generation and proving of a
 chain circuit through the port's enable_gpu(device="cpu") -- the plain
 versions of kernels K5-K8 serve every G1 MSM and fixed-base batch of 8 or
+more, those of the twist's K9-K11 every twist MSM and batch-exp of 8 or
 more -- against the JAX package's enable_native() run under one seed.
-Every normalized evaluation-key entry and proof element must be equal,
-the proof must verify, and the BN launch counts of the plain path stay 0
-(plain versions launch nothing) while the dispatch shows the plain
-backends served the calls."""
+Every normalized evaluation-key entry (twist entries included) and proof
+element must be equal, the proof must verify, and the launch counts of the
+plain path stay 0 (plain versions launch nothing) while the dispatch shows
+the plain backends served the calls, G1 and twist counted apart."""
 
 import types
 
@@ -116,42 +117,52 @@ def reference_run():
 
 @pytest.fixture(scope="module")
 def port_backend():
-    """enable_gpu on the CPU (the plain versions of K5-K8 behind the
-    dispatch, batches from 8: the BN MSM threshold lowered as the pivot
-    tests lower the engine's cut-over), counting which backend served each
-    G1 call; enable_native afterwards."""
+    """enable_gpu on the CPU (the plain versions of K5-K11 behind the
+    dispatch, batches from 8: the BN and twist thresholds lowered as the
+    pivot tests lower the engine's cut-over), counting which backend served
+    each G1 and each twist call; enable_native afterwards."""
     import torch
 
-    from verifiable_mpc_tpu_torch.groups.bn256 import BNPoint
-    from verifiable_mpc_tpu_torch.ops import dispatch, msm_bn_cuda, msm_cuda
+    from verifiable_mpc_tpu_torch.groups.bn256 import BNPoint, BNTwistPoint
+    from verifiable_mpc_tpu_torch.ops import (dispatch, msm_bn2_cuda,
+                                              msm_bn_cuda, msm_cuda)
 
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    served = {"msm": 0, "batch_exp": 0}
-    real = (msm_bn_cuda.msm, msm_bn_cuda.batch_exp_comb)
+    served = {"msm": 0, "batch_exp": 0, "twist_msm": 0,
+              "twist_batch_exp": 0}
+    wrapped = ((msm_bn_cuda, "msm", "msm"),
+               (msm_bn_cuda, "batch_exp_comb", "batch_exp"),
+               (msm_bn2_cuda, "msm", "twist_msm"),
+               (msm_bn2_cuda, "batch_exp", "twist_batch_exp"))
+    real = [getattr(mod, name) for mod, name, _key in wrapped]
 
-    def msm(points, scalars):
-        served["msm"] += 1
-        return real[0](points, scalars)
+    def counted(fn, key):
+        def call(*args):
+            served[key] += 1
+            return fn(*args)
 
-    def batch_exp(base, exps):
-        served["batch_exp"] += 1
-        return real[1](base, exps)
+        return call
 
-    msm_bn_cuda.msm, msm_bn_cuda.batch_exp_comb = msm, batch_exp
-    bn_min = port.BN_MIN_MSM_BATCH
-    port.BN_MIN_MSM_BATCH = 8
+    for (mod, name, key), fn in zip(wrapped, real):
+        setattr(mod, name, counted(fn, key))
+    thresholds = (port.BN_MIN_MSM_BATCH, port.BN2_MIN_BATCH)
+    port.BN_MIN_MSM_BATCH = port.BN2_MIN_BATCH = 8
     try:
         port.enable_gpu(device="cpu", min_msm_batch=8)
         assert BNPoint in dispatch._FOLD_BACKENDS
+        assert BNTwistPoint in dispatch._FOLD_BACKENDS
         msm_cuda.reset_launches()
         yield types.SimpleNamespace(served=served, launches=msm_cuda.LAUNCHES)
     finally:
-        msm_bn_cuda.msm, msm_bn_cuda.batch_exp_comb = real
-        port.BN_MIN_MSM_BATCH = bn_min
+        for (mod, name, _key), fn in zip(wrapped, real):
+            setattr(mod, name, fn)
+        port.BN_MIN_MSM_BATCH, port.BN2_MIN_BATCH = thresholds
         port.enable_native()
         torch.set_num_threads(n)
-    assert BNPoint not in dispatch._FOLD_BACKENDS  # enable_native: aside
+    # enable_native: the folds step aside
+    assert BNPoint not in dispatch._FOLD_BACKENDS
+    assert BNTwistPoint not in dispatch._FOLD_BACKENDS
 
 
 @pytest.fixture(scope="module")
@@ -175,15 +186,19 @@ def port_proof(port_backend, port_keys):
 
 def test_plain_kernels_served_keygen(port_keys):
     """Keygen's five G1 fills, beta row, s-powers and Lagrange section are
-    fixed-base batches (K8's plain version)."""
+    fixed-base batches (K8's plain version); its twist fill (the w-terms)
+    is one twist batch-exp (K11's plain version)."""
     assert len(list(port_keys.qap.indices_mid)) >= 8, "below the threshold"
-    assert port_keys.served == {"msm": 0, "batch_exp": 8}
+    assert port_keys.served == {"msm": 0, "batch_exp": 8, "twist_msm": 0,
+                                "twist_batch_exp": 1}
 
 
 def test_plain_kernels_served_prove(port_proof):
     """The prove's six G1 mid MSMs and the h MSM are K5 + K6's plain
-    versions; plain versions launch no kernel."""
-    assert port_proof.served == {"msm": 7, "batch_exp": 0}
+    versions, its twist MSM (wmid_g2) K9 + K10's; plain versions launch no
+    kernel."""
+    assert port_proof.served == {"msm": 7, "batch_exp": 0, "twist_msm": 1,
+                                 "twist_batch_exp": 0}
     assert not any(port_proof.launches.values())
 
 

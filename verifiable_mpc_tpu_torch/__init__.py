@@ -5,8 +5,9 @@ BN256 and quadratic-residue groups) with the host protocol layer carried
 over from the JAX package and the device work in CUDA kernels written for
 NVIDIA Hopper (``csrc/``).  The port carries the flagship path (generator
 setup, prove and verify of AC20 circuit satisfiability with the compressed
-pivot over Ed25519) and the BN256 G1 path (Pinocchio key generation,
-proving and verifying; the KoE pivot's G1 work).
+pivot over Ed25519) and the BN256 path (Pinocchio key generation,
+proving and verifying, over G1 and the twist G2; the KoE pivot's G1
+work).
 
 Entry points: :func:`enable_gpu` installs the GPU kernels behind the
 dispatch layer; :func:`enable_native` the C++ host tier.  The package
@@ -23,34 +24,39 @@ from . import groups
 # Ed25519 kernels and the BN comb win from 512; the BN MSM loses to the C++
 # tier up to 1024 points (K6's serial Horner thread and the host's point
 # and digit conversions cost it ~7 ms whatever the size), ties at 2048 and
-# wins from 4096.
+# wins from 4096.  The twist MSM and batch-exp (K9-K11) share
+# BN2_MIN_BATCH: the twist MSM ties the C++ tier at 1024 points (K10's
+# serial Horner thread, ~18 ms, sets a ~22 ms floor) and wins from 2048;
+# the twist batch-exp wins from 256.
 MIN_MSM_BATCH = 512
 BN_MIN_MSM_BATCH = 4096
+BN2_MIN_BATCH = 2048
 
 
 def enable_gpu(device=None, min_msm_batch: int = MIN_MSM_BATCH,
                min_poly_len: int = 128):
     """Install the GPU backends on ``device``: the Ed25519 MSM, MSM-async,
     fold and batch-exp backends with the resident protocol-4 engine, and
-    the BN256 G1 MSM, fold and batch-exp backends.
+    the BN256 G1 and twist (G2) MSM, fold and batch-exp backends.
 
-    On a CUDA device these are the kernels of ``csrc/*.cu`` (K1-K8);
+    On a CUDA device these are the kernels of ``csrc/*.cu`` (K1-K12);
     ``device="cpu"`` installs their plain PyTorch versions instead (the
     CPU tests use it).  With no argument the device is ``cuda`` and, when
     no card is present, this raises: nothing carries on on the CPU unasked.
 
     Batches below ``min_msm_batch`` (BN MSMs: below
-    :data:`BN_MIN_MSM_BATCH`) go to the C++ host tier, which also serves
-    the engine's sub-cutover tail (a BN fold below it takes the host loop:
-    the C++ tier has no BN fold).
+    :data:`BN_MIN_MSM_BATCH`; twist MSMs and batch-exps: below
+    :data:`BN2_MIN_BATCH`) go to the C++ host tier, which also serves the
+    engine's sub-cutover tail (a BN or twist fold below it takes the host
+    loop: the C++ tier has neither fold).
     """
     import torch
 
     from . import native
     from .ac20 import pivot_gpu
-    from .groups.bn256 import BNPoint
+    from .groups.bn256 import BNPoint, BNTwistPoint
     from .groups.edwards import EdwardsPoint
-    from .ops import dispatch, msm_bn_cuda, msm_cuda, ntt
+    from .ops import dispatch, msm_bn2_cuda, msm_bn_cuda, msm_cuda, ntt
 
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda":
@@ -90,6 +96,12 @@ def enable_gpu(device=None, min_msm_batch: int = MIN_MSM_BATCH,
     _tier(dispatch._BATCH_EXP_BACKENDS, BNPoint, msm_bn_cuda.batch_exp_comb,
           native.bn_batch_exp, exps)
     dispatch.register_fold_backend(BNPoint, msm_bn_cuda.fold, min_msm_batch)
+    _tier(dispatch._MSM_BACKENDS, BNTwistPoint, msm_bn2_cuda.msm,
+          native.bn2_msm, first, BN2_MIN_BATCH)
+    _tier(dispatch._BATCH_EXP_BACKENDS, BNTwistPoint, msm_bn2_cuda.batch_exp,
+          native.bn2_batch_exp, exps, BN2_MIN_BATCH)
+    dispatch.register_fold_backend(BNTwistPoint, msm_bn2_cuda.fold,
+                                   min_msm_batch)
     ntt.register(min_poly_len)
     return device
 
@@ -108,12 +120,13 @@ def enable_native(min_batch: int = 8, min_poly_len: int = 128):
 
         ntt.register(min_poly_len)
         # the C++ tier replaces the GPU backends: the resident engine, the
-        # device encode cache and the BN fold (the C++ tier has none) step
-        # aside too
-        from .groups.bn256 import BNPoint
+        # device encode cache and the BN and twist folds (the C++ tier has
+        # none) step aside too
+        from .groups.bn256 import BNPoint, BNTwistPoint
         from .ops import dispatch
 
         dispatch._FOLD_BACKENDS.pop(BNPoint, None)
+        dispatch._FOLD_BACKENDS.pop(BNTwistPoint, None)
         engine = sys.modules.get(__name__ + ".ac20.pivot_gpu")
         if engine is not None:
             engine.ENABLED = False

@@ -1,15 +1,17 @@
 // CPU build of the kernel bodies (g++): each entry point runs the per-thread
 // body of one CUDA kernel for every thread index in turn, so the field and
-// curve code of fe25519.cuh / ed25519_kernels.cuh and fp254.cuh /
-// bn254_kernels.cuh can be checked against the plain PyTorch versions
-// without a GPU (tests/port/test_torch_cuda_host.py,
-// tests/port/test_torch_bn_host.py).
+// curve code of fe25519.cuh / ed25519_kernels.cuh, fp254.cuh /
+// bn254_kernels.cuh and fp2_254.cuh / bn2_kernels.cuh can be checked
+// against the plain PyTorch versions without a GPU
+// (tests/port/test_torch_cuda_host.py, tests/port/test_torch_bn_host.py,
+// tests/port/test_torch_bn2_host.py).
 //
 //   g++ -O2 -shared -fPIC -o libhost_check.so host_check.cc
 
 #include <stdint.h>
 
 #include "bn254_kernels.cuh"
+#include "bn2_kernels.cuh"
 #include "ed25519_kernels.cuh"
 
 extern "C" {
@@ -172,6 +174,86 @@ void host_fp_inv(const uint64_t *a, uint64_t *r) {
   fp_load(x, a);
   fp_inv(z, x);
   fp_store(r, z);
+}
+
+// the twist kernels' first launches: n input rows -> working rows
+void host_bn2_encode(const uint64_t *in, uint64_t *out, int n) {
+  for (int i = 0; i < n; i++)
+    bn2_encode_one(in + (size_t)i * BN2_ROW, out + (size_t)i * BN2_ROW);
+}
+
+// K9 then K10 for one batch: pts [n][24] input rows, tbl [n][8][24],
+// digits [nw/2][n] -> out [24]
+void host_bn2_msm(const uint64_t *pts, uint64_t *tbl, const uint8_t *digits,
+                  int n, int nw, int S, uint64_t *acc, uint64_t *wsum,
+                  uint64_t *out) {
+  for (int i = 0; i < n; i++)
+    bn2_table_one(pts + (size_t)i * BN2_ROW, tbl + (size_t)i * 8 * BN2_ROW);
+  for (int w = 0; w < nw; w++)
+    for (int s = 0; s < S; s++)
+      bn2_msm_accum_one(tbl, digits, acc + ((size_t)w * S + s) * BN2_ROW, n,
+                        w, s, S);
+  for (int w = 0; w < nw; w++) {
+    g2p sum;
+    g2_identity(sum);
+    for (int s = 0; s < S; s++) {
+      g2p p;
+      g2_load(p, acc + ((size_t)w * S + s) * BN2_ROW);
+      g2_add(sum, sum, p);
+    }
+    g2_store(wsum + (size_t)w * BN2_ROW, sum);
+  }
+  bn2_msm_horner_one(wsum, out, nw);
+}
+
+// K11: table [9][24] input rows, work [9][24]
+void host_bn2_bexp(const uint64_t *table, uint64_t *work,
+                   const uint8_t *digits, int n, int nw, uint64_t *out) {
+  host_bn2_encode(table, work, 9);
+  for (int i = 0; i < n; i++)
+    bn2_bexp_one(work, digits, n, nw, i, out + (size_t)i * BN2_ROW);
+}
+
+// K12: gl, gr [n][24] input rows, work [2n][24]
+void host_bn2_fold_norm(const uint64_t *gl, const uint64_t *gr,
+                        uint64_t *work, const uint8_t *cdig, int nw,
+                        uint64_t *out, int n) {
+  host_bn2_encode(gl, work, n);
+  host_bn2_encode(gr, work + (size_t)n * BN2_ROW, n);
+  for (int i = 0; i < n; i++)
+    bn2_fold_norm_one(work + (size_t)i * BN2_ROW,
+                      work + (size_t)(n + i) * BN2_ROW, cdig, nw,
+                      out + (size_t)i * BN2_ROW);
+}
+
+// GF(p^2) ops on single canonical values (8 u64 limbs each: c0, c1)
+void host_fp2_mul(const uint64_t *a, const uint64_t *b, uint64_t *r) {
+  fp2 x, y, z;
+  fp2_load(x, a);
+  fp2_load(y, b);
+  fp2_mul(z, x, y);
+  fp2_store(r, z);
+}
+
+void host_fp2_sq(const uint64_t *a, uint64_t *r) {
+  fp2 x, z;
+  fp2_load(x, a);
+  fp2_sq(z, x);
+  fp2_store(r, z);
+}
+
+void host_fp2_mul_b3(const uint64_t *a, uint64_t *r) {
+  fp2 x, z;
+  fp2_load(x, a);
+  fp2_mul_b3(z, x);
+  fp2_store(r, z);
+}
+
+void host_fp2_inv(const uint64_t *a, uint64_t *r) {
+  fp2 x, z;
+  fp2_load(x, a);
+  fp2_inv(z, x);
+  fp2_store(r, z);
 }
 
 }  // extern "C"

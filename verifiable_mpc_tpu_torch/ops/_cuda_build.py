@@ -20,9 +20,12 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 SOURCES = ("msm_accum.cu", "msm_tail.cu", "fold.cu", "comb.cu",
-           "bn_msm_accum.cu", "bn_msm_tail.cu", "bn_fold.cu", "bn_comb.cu")
+           "bn_msm_accum.cu", "bn_msm_tail.cu", "bn_fold.cu", "bn_comb.cu",
+           "bn2_msm_accum.cu", "bn2_msm_tail.cu", "bn2_bexp.cu",
+           "bn2_fold.cu")
 HEADERS = ("fe25519.cuh", "ed25519_kernels.cuh", "fp254.cuh",
-           "bn254_kernels.cuh", "digits.cuh", "launch.cuh")
+           "bn254_kernels.cuh", "fp2_254.cuh", "bn2_kernels.cuh",
+           "digits.cuh", "launch.cuh")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -69,10 +72,17 @@ def lib():
         so.vmpc_cu_bn_msm_tail.argtypes = [vp, vp, vp, ci, ci, ci, vp]
         so.vmpc_cu_bn_fold_norm.argtypes = [vp, vp, vp, vp, ci, vp, ci, vp]
         so.vmpc_cu_bn_comb_norm.argtypes = [vp, vp, vp, ci, ci, vp, vp]
+        so.vmpc_cu_bn2_msm_accum.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
+                                             vp]
+        so.vmpc_cu_bn2_msm_tail.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+        so.vmpc_cu_bn2_bexp.argtypes = [vp, vp, vp, ci, ci, vp, vp]
+        so.vmpc_cu_bn2_fold_norm.argtypes = [vp, vp, vp, vp, ci, vp, ci, vp]
         for fn in (so.vmpc_cu_msm_accum, so.vmpc_cu_msm_tail,
                    so.vmpc_cu_fold_norm, so.vmpc_cu_comb_norm,
                    so.vmpc_cu_bn_msm_accum, so.vmpc_cu_bn_msm_tail,
-                   so.vmpc_cu_bn_fold_norm, so.vmpc_cu_bn_comb_norm):
+                   so.vmpc_cu_bn_fold_norm, so.vmpc_cu_bn_comb_norm,
+                   so.vmpc_cu_bn2_msm_accum, so.vmpc_cu_bn2_msm_tail,
+                   so.vmpc_cu_bn2_bexp, so.vmpc_cu_bn2_fold_norm):
             fn.restype = ci
         _lib = so
     return _lib

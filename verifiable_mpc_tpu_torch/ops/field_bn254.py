@@ -24,10 +24,11 @@ operations.  Only :func:`canon` returns the canonical residue with exact
 16-bit limbs.
 
 Montgomery products: the plain version computes the residue a b R^-1 mod
-p, the function of ``mont_mul``, by folding the limb products onto 16
-limbs with tables of 2^(16 k) R^-1 mod p (exact float64 matrix products),
-then subtracting a float64 estimate of the quotient by p
-(:func:`mont_mul`).  The kernels reach the same residues by CIOS.
+p, the function of ``mont_mul``, by summing the limb products into
+columns and folding the columns' 16-bit chunks onto 16 limbs with tables
+of 2^(16 k) R^-1 mod p (exact float64 matrix products), then subtracting
+a float64 estimate of the quotient by p (:func:`mont_mul`).  The kernels
+reach the same residues by CIOS.
 """
 
 from __future__ import annotations
@@ -125,23 +126,22 @@ def _carry_round(x, wrap: bool):
 # ---------------------------------------------------------------------------
 
 
-def _fold_tables(dev):
-    """[256, 16] float64 tables: row 16 i + j holds the limbs of
-    2^(16 (i + j)) R^-1 mod p (low halves of limb products) and of
-    2^(16 (i + j + 1)) R^-1 mod p (high halves)."""
-    key = ("fold", str(dev))
+def _col_tables(dev):
+    """float64 tables of the product: ``cols`` [256, 31] maps limb product
+    16 i + j to its column i + j; ``fold`` [93, 16] row 3 k + c holds the
+    limbs of 2^(16 (k + c)) R^-1 mod p, for 16-bit chunk c of column k."""
+    key = ("cols", str(dev))
     hit = _CONSTS.get(key)
     if hit is None:
-        rinv = pow(R, -1, P)
-        lo, hi = [], []
+        cols = torch.zeros((LIMBS * LIMBS, 2 * LIMBS - 1), dtype=torch.float64)
         for i in range(LIMBS):
             for j in range(LIMBS):
-                lo.append(int_to_limbs(pow(2, 16 * (i + j), P) * rinv % P))
-                hi.append(int_to_limbs(pow(2, 16 * (i + j + 1), P) * rinv
-                                       % P))
-        hit = _CONSTS[key] = (
-            torch.tensor(lo, dtype=torch.float64, device=dev),
-            torch.tensor(hi, dtype=torch.float64, device=dev))
+                cols[LIMBS * i + j, i + j] = 1.0
+        rinv = pow(R, -1, P)
+        fold = [int_to_limbs(pow(2, 16 * (k + c), P) * rinv % P)
+                for k in range(2 * LIMBS - 1) for c in range(3)]
+        hit = _CONSTS[key] = (cols.to(dev), torch.tensor(
+            fold, dtype=torch.float64, device=dev))
     return hit
 
 
@@ -167,27 +167,28 @@ def _reduce(x):
 def mont_mul(a, b):
     """a * b * R^-1 mod p (reduced), for limbs below 2^22 in magnitude.
 
-    Each limb product a_i b_j splits into 16-bit halves, and the halves
-    fold onto 16 limbs through the tables of 2^(16 k) R^-1 mod p in one
-    float64 product per half: every partial sum is an integer below 2^51,
-    so the float64 arithmetic is exact.  (The kernels' CIOS computes the
-    same residue; this route suits tensor ops.)"""
+    The limb products (below 2^44) and their 31 column sums (below 2^48)
+    are exact in float64, so one float64 product with a 0/1 table gives
+    the columns; each column splits into three 16-bit chunks (the top one
+    signed), and the chunks fold onto 16 limbs through the table of
+    2^(16 k) R^-1 mod p in one more float64 product (every partial sum an
+    integer below 2^40).  (The kernels' CIOS computes the same residue;
+    this route suits tensor ops.)"""
     if a.shape != b.shape:
         a, b = torch.broadcast_tensors(a, b)
-    wlo, whi = _fold_tables(a.device)
+    cmap, fold = _col_tables(a.device)
     f64 = torch.float64
+    af, bf = a.to(f64), b.to(f64)
     if a[..., 0].numel() <= 4096:
-        prod = (a[..., :, None] * b[..., None, :]).flatten(-2)
-        r = (prod & MASK).to(f64) @ wlo + (prod >> 16).to(f64) @ whi
+        cols = (af[..., :, None] * bf[..., None, :]).flatten(-2) @ cmap
     else:  # one row of limb products at a time: 16 x less memory
-        r = None
+        cols = None
         for i in range(LIMBS):
-            prod = a[..., i : i + 1] * b
-            rows = slice(LIMBS * i, LIMBS * (i + 1))
-            part = ((prod & MASK).to(f64) @ wlo[rows]
-                    + (prod >> 16).to(f64) @ whi[rows])
-            r = part if r is None else r + part
-    return _reduce(r.to(torch.int64))
+            part = (af[..., i : i + 1] * bf) @ cmap[LIMBS * i : LIMBS * (i + 1)]
+            cols = part if cols is None else cols + part
+    c = cols.to(torch.int64)
+    chunks = torch.stack([c & MASK, (c >> 16) & MASK, c >> 32], dim=-1)
+    return _reduce((chunks.flatten(-2).to(f64) @ fold).to(torch.int64))
 
 
 def mont_sq(a):

@@ -1,0 +1,308 @@
+"""BN256 twist (G2) MSM, fixed-base batch exponentiation and generator fold
+on the GPU.
+
+Counterpart of the JAX package's ``ops/bn2_pallas.py`` (``msm``, ``fold``,
+``batch_exp``, ``register``) and of ``msm_pallas._batch_exp_generic``: the
+curve-generic kernels of ``ops/msm_pallas.py`` with the twist adapter.  The
+device work is four kernels hand-written in CUDA (``csrc/bn2_*.cu``, one
+source each, over ``csrc/fp2_254.cuh`` and ``csrc/bn2_kernels.cuh``):
+
+=====  ======================  =========================================
+K9     bn2_msm_accumulate      4-bit signed-window accumulation (B1, BN2)
+K10    bn2_msm_tail            window reduction + Horner + normalize (B2)
+K11    bn2_bexp                shared-base signed-window ladder (B4, BN2)
+K12    bn2_fold                g_l^c * g_r + normalize (B3, BN2)
+=====  ======================  =========================================
+
+Each wrapper (:func:`msm_rows`, :func:`bexp_rows`, :func:`fold_rows`)
+launches its kernels for a CUDA tensor and counts the launch in
+``msm_cuda.LAUNCHES``; for a CPU tensor it runs the plain PyTorch version
+beside it (:func:`msm_plain`, :func:`bexp_plain`, :func:`fold_plain`).  A
+CUDA tensor never reaches a plain version, and a failed build or launch
+raises.
+
+Points travel as ``[n, 24]`` int64 input rows (``ops/curve_bn2.py``):
+jacobian, standard form, as ``native._bn2_pts_to_u64`` gives them.  K9, K11
+and K12 turn them into working rows (projective, Montgomery form) in a
+first launch, and every result leaves the kernels normalized in standard
+form, the identity as exactly ``BNTwistPoint.identity``'s (1, 1, 0), which
+is an input row again.  Scalars are recoded against the BN group order
+(``bn256.ORDER``), with the -8 digit guard of ``msm_cuda``'s recoding.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..groups.bn256 import ORDER, BNTwistPoint
+from . import curve_bn2 as cb2
+from . import field_bn254x2 as fp2
+from . import msm_cuda as mc
+
+TABLE = mc.TABLE  # fold table 0..15
+TABLE_S = mc.TABLE_S  # signed-digit table 0..8
+ROW = cb2.ROW
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers (tensor level)
+# ---------------------------------------------------------------------------
+
+
+def msm_accumulate(points: torch.Tensor, digits: torch.Tensor,
+                   S: int) -> torch.Tensor:
+    """K9: window accumulators [B, nw, S, 24] (working rows, not
+    normalized) of B MSMs; slice s holds points s, s + S, s + 2S, ...
+    points [B, n, 24] input rows, digits [B, nw/2, n] packed signed
+    windows.  CPU: :func:`msm_accumulate_plain`."""
+    mc._check_rows(points, "points", 3, ROW)
+    B, n, _ = points.shape
+    mc._check_digits(digits, "digits", (B, digits.shape[1], n))
+    nw = 2 * digits.shape[1]
+    if not 0 < nw <= mc.NWINDOWS or not 0 < S or not n:
+        raise ValueError(f"window count {nw} / slice count {S} / {n} points")
+    if mc._same_device(points, digits).type == "cpu":
+        return msm_accumulate_plain(points, digits, S)
+    from . import _cuda_build as cb
+
+    tbl = torch.empty((B, n, TABLE_S - 1, ROW), dtype=torch.int64,
+                      device=points.device)
+    acc = torch.empty((B, nw, S, ROW), dtype=torch.int64,
+                      device=points.device)
+    cb.check(cb.lib().vmpc_cu_bn2_msm_accum(
+        points.data_ptr(), tbl.data_ptr(), digits.data_ptr(),
+        acc.data_ptr(), B, n, nw, S, mc._stream(points)),
+        "bn2_msm_accumulate")
+    mc.LAUNCHES["bn2_msm_accumulate"] += 1
+    return acc
+
+
+def msm_tail(acc: torch.Tensor) -> torch.Tensor:
+    """K10: accumulators [B, nw, S, 24] -> [B, 24] normalized rows of
+    sum_w 16^(nw-1-w) sum_s acc[w, s].  CPU: :func:`msm_tail_plain`."""
+    mc._check_rows(acc, "acc", 4, ROW)
+    B, nw, S, _ = acc.shape
+    if mc._same_device(acc).type == "cpu":
+        return msm_tail_plain(acc)
+    from . import _cuda_build as cb
+
+    wsum = torch.empty((B, nw, ROW), dtype=torch.int64, device=acc.device)
+    out = torch.empty((B, ROW), dtype=torch.int64, device=acc.device)
+    cb.check(cb.lib().vmpc_cu_bn2_msm_tail(
+        acc.data_ptr(), wsum.data_ptr(), out.data_ptr(), B, nw, S,
+        mc._stream(acc)), "bn2_msm_tail")
+    mc.LAUNCHES["bn2_msm_tail"] += 1
+    return out
+
+
+def msm_rows(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """sum_i d_i * P_i for B independent MSMs -> [B, 24] normalized rows
+    (K9 then K10)."""
+    return msm_tail(msm_accumulate(points, digits,
+                                   mc.slices_for(points.shape[1])))
+
+
+def bexp_rows(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """base^e_i for a shared base: table [9, 24] input rows (row m = m *
+    base), digits [nw/2, n] packed signed windows of the exponents ->
+    [n, 24] normalized rows.  CUDA: K11; CPU: :func:`bexp_plain`."""
+    mc._check_rows(table, "table", 2, ROW)
+    if table.shape[0] != TABLE_S:
+        raise ValueError(f"batch-exp table of {table.shape[0]} rows, not "
+                         f"{TABLE_S}")
+    mc._check_digits(digits, "digits", (digits.shape[0], digits.shape[-1]))
+    nw = 2 * digits.shape[0]
+    if not 0 < nw <= mc.NWINDOWS or not digits.shape[1]:
+        raise ValueError(f"window count {nw} / {digits.shape[1]} exponents")
+    if mc._same_device(table, digits).type == "cpu":
+        return bexp_plain(table, digits)
+    from . import _cuda_build as cb
+
+    n = digits.shape[1]
+    work = torch.empty_like(table)
+    out = torch.empty((n, ROW), dtype=torch.int64, device=table.device)
+    cb.check(cb.lib().vmpc_cu_bn2_bexp(
+        table.data_ptr(), work.data_ptr(), digits.data_ptr(), n, nw,
+        out.data_ptr(), mc._stream(table)), "bn2_bexp")
+    mc.LAUNCHES["bn2_bexp"] += 1
+    return out
+
+
+def fold_rows(gl: torch.Tensor, gr: torch.Tensor,
+              cdigits: np.ndarray) -> torch.Tensor:
+    """[gl_i^c * gr_i] as normalized rows; ``cdigits``: c's unsigned 4-bit
+    windows, most significant first (``msm_cuda.scalar_digits`` with the
+    BN order).  CUDA: K12; CPU: :func:`fold_plain`."""
+    mc._check_rows(gl, "gl", 2, ROW)
+    mc._check_rows(gr, "gr", 2, ROW)
+    if gl.shape != gr.shape or not gl.shape[0]:
+        raise ValueError("gl and gr differ in shape or are empty")
+    cdig = np.ascontiguousarray(cdigits, dtype=np.uint8).reshape(-1)
+    if len(cdig) > mc.NWINDOWS or cdig.max(initial=0) >= TABLE:
+        raise ValueError("fold digits must be <= 64 windows in [0, 15]")
+    if mc._same_device(gl, gr).type == "cpu":
+        return fold_plain(gl, gr, cdig)
+    from . import _cuda_build as cb
+
+    n = gl.shape[0]
+    work = torch.empty((2 * n, ROW), dtype=torch.int64, device=gl.device)
+    out = torch.empty((n, ROW), dtype=torch.int64, device=gl.device)
+    cb.check(cb.lib().vmpc_cu_bn2_fold_norm(
+        gl.data_ptr(), gr.data_ptr(), work.data_ptr(), cdig.ctypes.data,
+        len(cdig), out.data_ptr(), n, mc._stream(gl)), "bn2_fold")
+    mc.LAUNCHES["bn2_fold"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# plain versions (tensor ops; the CPU path and the kernels' yardstick)
+# ---------------------------------------------------------------------------
+
+
+def _multiples(p):
+    """[identity, p, 2p, ..., 8p] (working coordinates)."""
+    tbl = [cb2.identity(p[0].shape[:-1], p[0].device), p]
+    for _ in range(2, TABLE_S):
+        tbl.append(cb2.add(tbl[-1], p))
+    return tbl
+
+
+def msm_accumulate_plain(points: torch.Tensor, digits: torch.Tensor,
+                         S: int) -> torch.Tensor:
+    """Plain version of K9: the working rows of each point's multiples
+    0..8, the signed selection per (window, point), summed into the
+    (window, slice) accumulators; points are taken in blocks of whole rows
+    of S."""
+    points = cb2.encode_jacobian_rows(points)
+    B, n, _ = points.shape
+    nw = 2 * digits.shape[1]
+    dev = points.device
+    J = -(-n // S)
+    d = mc.unpack_digits(digits)  # [B, nw, n]
+    if J * S > n:  # pad with identities and zero digits
+        ident = torch.tensor(cb2.IDENTITY_MONT_ROW, dtype=torch.int64,
+                             device=dev)
+        points = torch.cat([points, ident.expand(B, J * S - n, ROW)], dim=1)
+        d = torch.cat([d, d.new_zeros(B, nw, J * S - n)], dim=2)
+    acc = cb2.identity((B, nw, S), dev)
+    step = max(1, mc._PLAIN_BLOCK // (B * nw * S))
+    for j0 in range(0, J, step):
+        j1 = min(J, j0 + step)
+        m = (j1 - j0) * S
+        tbl = _multiples(cb2.split_rows(points[:, j0 * S : j1 * S]))
+        db = d[:, :, j0 * S : j1 * S]  # [B, nw, m]
+        idx = db.abs().transpose(1, 2)[..., None].expand(B, m, nw,
+                                                         fp2.LIMBS)
+        sel = tuple(torch.gather(torch.stack([t[c] for t in tbl], dim=2),
+                                 2, idx).transpose(1, 2)
+                    for c in range(cb2.COORDS))  # [B, nw, m, 32]
+        sel = cb2.neg_where(db < 0, sel)
+        part = mc._tree_sum(
+            tuple(c.unflatten(2, (j1 - j0, S)) for c in sel), 2, cb2)
+        acc = cb2.add(acc, part)
+    return cb2.join_rows(acc)
+
+
+def msm_tail_plain(acc: torch.Tensor) -> torch.Tensor:
+    """Plain version of K10: sum the slices of each window, Horner over the
+    windows, normalize."""
+    nw = acc.shape[1]
+    sums = mc._tree_sum(cb2.split_rows(acc), 2, cb2)  # [B, nw, 32]
+    return cb2.normalize_rows(mc._horner(sums, nw, cb2))
+
+
+def msm_plain(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """Plain version of K9 + K10."""
+    return msm_tail_plain(
+        msm_accumulate_plain(points, digits, mc.slices_for(points.shape[1])))
+
+
+def bexp_plain(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """Plain version of K11: the table's working rows, then per exponent
+    4 doublings and an add of +-T[|d|] per window, normalize (in blocks of
+    exponents)."""
+    tbl = cb2.split_rows(cb2.encode_jacobian_rows(table))  # 3 x [9, 32]
+    nw = 2 * digits.shape[0]
+    n = digits.shape[1]
+    d = mc.unpack_digits(digits)  # [nw, n]
+    step = max(1, mc._PLAIN_BLOCK // nw)
+    out = []
+    for i0 in range(0, n, step):
+        db = d[:, i0 : i0 + step]
+        acc = cb2.identity((db.shape[1],), table.device)
+        for w in range(nw):
+            for _ in range(mc.WINDOW):
+                acc = cb2.dbl(acc)
+            sel = cb2.neg_where(db[w] < 0,
+                                tuple(c[db[w].abs()] for c in tbl))
+            acc = cb2.add(acc, sel)
+        out.append(cb2.normalize_rows(acc))
+    return torch.cat(out, dim=0)
+
+
+def fold_plain(gl: torch.Tensor, gr: torch.Tensor,
+               cdig: np.ndarray) -> torch.Tensor:
+    """Plain version of K12: the working rows of gl and gr, table 0..15 of
+    gl, Horner over c's unsigned windows, add gr, normalize."""
+    n = gl.shape[0]
+    g = cb2.split_rows(cb2.encode_jacobian_rows(gl))
+    tbl = [None, g]
+    for _ in range(2, TABLE):
+        tbl.append(cb2.add(tbl[-1], g))
+    acc = cb2.identity((n,), gl.device)
+    for d in cdig:
+        for _ in range(mc.WINDOW):
+            acc = cb2.dbl(acc)
+        if d:
+            acc = cb2.add(acc, tbl[int(d)])
+    return cb2.normalize_rows(
+        cb2.add(acc, cb2.split_rows(cb2.encode_jacobian_rows(gr))))
+
+
+# ---------------------------------------------------------------------------
+# point-level API (the dispatch backends)
+# ---------------------------------------------------------------------------
+
+
+def _digits(scalars):
+    """Packed signed digits of scalars (ints, negative ones included, or
+    field elements) reduced mod the BN order, and their window count."""
+    from .. import native
+
+    return mc.packed_digits(native._scalars_to_u64(list(scalars), ORDER),
+                            ORDER)
+
+
+def msm(points, scalars) -> BNTwistPoint:
+    """prod points[i] ** scalars[i] on the twist through K9 + K10."""
+    assert len(points) == len(scalars)
+    pk, _nw = _digits(scalars)
+    digits = torch.from_numpy(pk).to(mc.DEVICE)
+    out = msm_rows(cb2.encode_points(points, mc.DEVICE)[None], digits[None])
+    return cb2.decode_rows(out)[0]
+
+
+def fold(g_l, g_r, c: int) -> list:
+    """[g_l[i] ** c * g_r[i]] (normalized) through K12."""
+    assert len(g_l) == len(g_r)
+    cdig = mc.scalar_digits([int(c)], ORDER)[:, 0]
+    out = fold_rows(cb2.encode_points(g_l, mc.DEVICE),
+                    cb2.encode_points(g_r, mc.DEVICE), cdig)
+    return cb2.decode_rows(out)
+
+
+def bexp_table(base, device=None) -> torch.Tensor:
+    """[9, 24] input rows of m * base for m = 0..8, built on the host (7
+    group operations, as ``_batch_exp_generic`` builds its table)."""
+    pts = [BNTwistPoint.identity, base]
+    for _ in range(2, TABLE_S):
+        pts.append(pts[-1] * base)
+    return cb2.encode_points(pts, device or mc.DEVICE)
+
+
+def batch_exp(base, exponents) -> list:
+    """[base ** e for e in exponents] (normalized) through K11."""
+    pk, _nw = _digits(exponents)
+    out = bexp_rows(bexp_table(base), torch.from_numpy(pk).to(mc.DEVICE))
+    return cb2.decode_rows(out)

@@ -44,10 +44,12 @@ TABLE_S = (1 << (WINDOW - 1)) + 1  # 0..8: signed-digit table
 POINTS_PER_THREAD = 16  # K1: points one (window, slice) thread walks
 
 # kernel launches, counted by the wrappers where they launch (never by the
-# plain versions); the bn_* ones by ops/msm_bn_cuda.py
+# plain versions); the bn_* ones by ops/msm_bn_cuda.py, the bn2_* ones by
+# ops/msm_bn2_cuda.py
 LAUNCHES = {"msm_accumulate": 0, "msm_tail": 0, "fold": 0, "comb": 0,
             "bn_msm_accumulate": 0, "bn_msm_tail": 0, "bn_fold": 0,
-            "bn_comb": 0}
+            "bn_comb": 0, "bn2_msm_accumulate": 0, "bn2_msm_tail": 0,
+            "bn2_bexp": 0, "bn2_fold": 0}
 
 DEVICE = None  # set by register()
 REGISTERED = False
