@@ -16,14 +16,20 @@ Phases (each one fatal; any failure exits non-zero and prints no result):
    4096} with edge scalars (and identity inputs for BN), also against the
    C++ tier, and K9 + K10 (MSM), K11 (batch-exp) and K12 (fold) over the
    BN256 twist the same way (native.bn2_msm, native.bn2_batch_exp, the host
-   law); then each kernel alone at the shapes its path gives it, timed
-   with CUDA events beside its plain version and its bound; the tolerance
-   is exact equality of canonical values;
+   law), and K13 + K14 (the bucket MSM; native.ed_msm), K15 (batch-exp;
+   native.ed_batch_exp and the comb) and K16 (the Montgomery-limb add; the
+   host law) with edge scalars, digits 128 and -128, identities and points
+   with Z != 1; then each kernel alone at the shapes its path gives it,
+   timed with CUDA events beside its plain version and its bound; the
+   tolerance is exact equality of canonical values;
 4. the Ed25519 MSM at 2^16 against the port's C++ tier
    (native.ed_msm_arr); the BN MSM and comb at 2^16 against native.bn_msm /
    bn_batch_exp, and both at the BN tier's threshold sizes; the twist MSM
    and batch-exp against native.bn2_msm / bn2_batch_exp at the twist tier
-   sizes and at 2^17 (the sweep behind BN2_MIN_BATCH);
+   sizes and at 2^17 (the sweep behind BN2_MIN_BATCH); the bucket MSM
+   against K1 + K2 and the C++ tier at 2^12 ... 2^18 points, encode to
+   decode and with the points resident, its host conversion, card-side
+   recoding and layout and kernels timed apart;
 5. the engine cut-over: one protocol-4 round on the card and on the C++
    tier per half size;
 6. the Ed25519 flagship: enable_gpu(), a 2^16-multiplication chain
@@ -32,6 +38,13 @@ Phases (each one fatal; any failure exits non-zero and prints no result):
    and every kernel of that path and the resident engine must have run;
 7. parity at 2^12 multiplications: the GPU prove and the enable_native()
    prove under one seed give identical (normalized) proof bytes;
+7b. the flagship again with the bucket MSM registered
+   (msm_bucket_cuda.register()): K13 + K14 serve the synchronous MSMs of
+   4096 points and more (protocol 5's commitment A), launches counted per
+   stage; its 2^12 parity with the bucket serving from 512 points; then
+   enable_gpu() restores the backends; K15 and K16 once through their
+   entry points (msm_cuda.batch_exp, add_cuda.add), their launches counted
+   there;
 8. the BN256 path: Pinocchio at 2^16 multiplications with enable_gpu()
    (SparseQAP, generate_keys_fast, calculate_witness, compute_proof_fast,
    verify), seconds and launches per stage, K8 and the twist's K11 in the
@@ -41,7 +54,7 @@ Phases (each one fatal; any failure exits non-zero and prints no result):
    evaluation keys (twist entries included) and proofs equal once
    normalized; the KoE pivot at 2^10 (K8 in its setup, K5 + K6 in its
    prove);
-9. the ``kernels`` JSON line, then the result line
+9. the ``kernels`` JSON line (sixteen kernels), then the result line
    ``{"ok": true, "device": {...}}``.
 
 Imports neither jax nor the JAX package.
@@ -73,6 +86,9 @@ KOE_LOG2_MULS = 10
 BN_TIER_SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384)
 BN2_TIER_SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384, SNARK_SHAPE)
 CUTOVER_HALVES = tuple(1 << k for k in range(7, 15))
+BUCKET_SWEEP_LOG2 = (12, 14, 16, 17, 18)
+BUCKET_PARITY_MIN_BATCH = 512  # the bucket serves the 2^12 prove's MSMs
+MONT_ADD_SHAPE = 1 << 17
 
 # H100 SXM peaks used for the bounds (NVIDIA data sheet; the card may run
 # below them when its power limit is under 700 W)
@@ -133,6 +149,10 @@ SOURCES = {
     "bn2_msm_tail": "verifiable_mpc_tpu_torch/csrc/bn2_msm_tail.cu",
     "bn2_bexp": "verifiable_mpc_tpu_torch/csrc/bn2_bexp.cu",
     "bn2_fold": "verifiable_mpc_tpu_torch/csrc/bn2_fold.cu",
+    "bucket_accumulate": "verifiable_mpc_tpu_torch/csrc/bucket_accum.cu",
+    "bucket_reduce": "verifiable_mpc_tpu_torch/csrc/bucket_reduce.cu",
+    "bexp": "verifiable_mpc_tpu_torch/csrc/bexp.cu",
+    "mont_add": "verifiable_mpc_tpu_torch/csrc/ed_add_mont.cu",
 }
 
 _BN = " with the BN adapter verifiable_mpc_tpu/ops/bn_pallas.py:54,88"
@@ -152,8 +172,14 @@ REPLACES = {
     "bn2_msm_tail": "verifiable_mpc_tpu/ops/msm_pallas.py:616" + _BN2,
     "bn2_bexp": "verifiable_mpc_tpu/ops/msm_pallas.py:1129" + _BN2,
     "bn2_fold": "verifiable_mpc_tpu/ops/msm_pallas.py:929" + _BN2,
+    "bucket_accumulate": "verifiable_mpc_tpu/ops/msm_bucket.py:217",
+    "bucket_reduce": "verifiable_mpc_tpu/ops/msm_bucket.py:265",
+    "bexp": "verifiable_mpc_tpu/ops/msm_pallas.py:1129",
+    "mont_add": "verifiable_mpc_tpu/ops/pallas_kernels.py:53",
 }
 ED_KERNELS = ("msm_accumulate", "msm_tail", "fold", "comb")
+BUCKET_KERNELS = ("bucket_accumulate", "bucket_reduce")
+ENTRY_KERNELS = ("bexp", "mont_add")  # entry points on no protocol path
 
 
 def log(msg):
@@ -554,14 +580,18 @@ def cutover(torch, native, mc, ced, rng):
 # ---------------------------------------------------------------------------
 
 
-def flagship(torch, vm, mc):
+def flagship(torch, vm, mc, built, bk=None):
+    """Generators, prove and verify of the circuit ``built`` with
+    enable_gpu(); with ``bk`` the bucket MSM is registered too
+    (``bk.register()``), K13 + K14 must run in the prove, and enable_gpu()
+    restores the backends afterwards."""
     import verifiable_mpc_tpu_torch.ac20.circuit_sat_cb as cs
     from verifiable_mpc_tpu_torch.ac20 import pivot_gpu
 
     vm.enable_gpu(DEV)
-    with Phase(f"build the 2^{FLAGSHIP_LOG2_MULS}-multiplication circuit"):
-        group, gf, circuit, x, g_length = padded_circuit(vm,
-                                                         FLAGSHIP_LOG2_MULS)
+    if bk is not None:
+        bk.register()
+    group, gf, circuit, x, g_length = built
     log(f"   muls={circuit.mul_ct} commitment vector length={g_length}")
     pc = cs.PivotChoice.compressed
     secs, per_stage = {}, {}
@@ -585,14 +615,19 @@ def flagship(torch, vm, mc):
                                                           circuit, gf, pc))
     launches = dict(mc.LAUNCHES)
     runs = pivot_gpu.ENGINE_RUNS - runs0
+    if bk is not None:
+        vm.enable_gpu(DEV)
     log(f"   generators {secs['generators']:.3f} s, prove {secs['prove']:.3f}"
-        f" s, verify {secs['verify']:.3f} s (2^{FLAGSHIP_LOG2_MULS} muls)")
+        f" s, verify {secs['verify']:.3f} s (2^{FLAGSHIP_LOG2_MULS} muls"
+        + (", bucket MSM registered)" if bk is not None else ")"))
     for name, counts in per_stage.items():
         log(f"   launches in {name}: {counts}")
     log(f"   verification {ver}; engine runs {runs}; launches {launches}")
     assert verified(ver), f"flagship proof did not verify: {ver}"
     assert runs > 0, "the resident GPU engine never ran"
     missing = [k for k in ED_KERNELS if launches[k] == 0]
+    if bk is not None:
+        missing += [k for k in BUCKET_KERNELS if per_stage["prove"][k] == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
     return launches
 
@@ -621,6 +656,319 @@ def parity(torch, vm):
     assert verified(cs.circuit_sat_verifier(p_gpu, gens, circuit, gf, pc))
     log(f"   2^{PARITY_LOG2_MULS} muls: {len(b_gpu)} proof bytes identical "
         "to the C++ tier's, verified")
+
+
+# ---------------------------------------------------------------------------
+# Ed25519: the bucket MSM (K13 + K14), batch-exp (K15), Montgomery add (K16)
+# ---------------------------------------------------------------------------
+
+
+def ed_points(native, n: int, rng, identity_at=(), rescale=True):
+    """n Ed25519 points made by the C++ tier; with ``rescale`` every third
+    one with Z != 1 (identities where asked)."""
+    from verifiable_mpc_tpu_torch.groups.edwards import ELL, P, EdwardsPoint
+
+    pts = native.ed_batch_exp(EdwardsPoint.generator,
+                              [rng.randrange(1, ELL) for _ in range(n)])
+    for i in range(0, n, 3) if rescale else ():
+        lam, q = rng.randrange(2, P), pts[i]
+        pts[i] = EdwardsPoint(q.x * lam, q.y * lam, q.z * lam, q.t * lam)
+    for i in identity_at:
+        if i < n:
+            pts[i] = EdwardsPoint.identity
+    return pts
+
+
+def bucket_scalars(ell: int, n: int, rng):
+    """Edge scalars (order - 1 first: a batch of one is not all zero),
+    scalars whose radix-256 digits include 128 and -128, then random
+    ones."""
+    edge = edge_scalars(ell)[::-1] + [128 + (128 << 8), ell - 128,
+                                      ell - (128 << 16) - 128]
+    return (edge + [rng.randrange(ell) for _ in range(n)])[:n]
+
+
+def ed_host_rows(native, points) -> np.ndarray:
+    from verifiable_mpc_tpu_torch.groups.edwards import EdwardsPoint
+
+    return np.ascontiguousarray(
+        native._pts_to_u64(EdwardsPoint.batch_normalize(list(points))))
+
+
+def check_small_new(torch, native, mc, bk, ced, add, lm, rng):
+    """K13 + K14, K15 and K16 against their plain versions and the C++ tier
+    (K16: the host law) at the CHECK_SIZES, with edge scalars, digits 128
+    and -128, identities and points with Z != 1; max_abs_err on the
+    canonical rows."""
+    from verifiable_mpc_tpu_torch.groups.edwards import ELL
+
+    dev = torch.device(DEV)
+    norm = lambda a: ced.normalize_rows(  # noqa: E731
+        ced.split_rows(a.reshape(-1, 16)))
+    for n in CHECK_SIZES:
+        pts = ed_points(native, n, rng, identity_at=(2, 200))
+        sc = bucket_scalars(ELL, n, rng)
+        rows = ced.encode_points(pts, dev)
+        perm, sgn = bk.layout_for(sc, 8, bk.LANES, dev)
+        buckets = bk.bucket_accumulate(rows, perm, sgn)
+        got = bk.bucket_reduce(buckets)
+        errs = [max_abs_err(torch, norm(buckets), norm(
+                    bk.bucket_accumulate_plain(rows, perm, sgn))),
+                max_abs_err(torch, got, bk.bucket_reduce_plain(buckets)),
+                host_err(torch, got, ed_host_rows(
+                    native, [native.ed_msm(pts, sc)]))]
+
+        base = ed_points(native, 1, rng, rescale=False)[0]
+        pk, _nw = mc.packed_digits(native._ints_to_u64x4(sc, ELL))
+        dig = torch.from_numpy(pk).to(dev)
+        table = mc.bexp_table(base, dev)
+        got = mc.bexp_rows(table, dig)
+        host = ed_host_rows(native, native.ed_batch_exp(base, sc))
+        errs += [max_abs_err(torch, got, mc.bexp_plain(table, dig)),
+                 host_err(torch, got, host),
+                 host_err(torch, got, ced.to_rows(
+                     mc.comb_rows(mc.comb_table(base, _nw, dev), dig)))]
+
+        qs = ed_points(native, n, rng, identity_at=(0,))[::-1]
+        if n > 3:
+            qs[3] = pts[3]  # a doubling
+        mp = tuple(torch.from_numpy(a).to(dev) for a in lm.encode_points(pts))
+        mq = tuple(torch.from_numpy(a).to(dev) for a in lm.encode_points(qs))
+        got = add.add(mp, mq)
+        plain = add.add_plain(mp, mq)
+        law = lm.decode_points(tuple(c.cpu().numpy() for c in got))
+        errs += [max(max_abs_err(torch, a.to(torch.int64), b.to(torch.int64))
+                     for a, b in zip(got, plain)),
+                 0.0 if law == [a * b for a, b in zip(pts, qs)] else 1.0]
+        torch.cuda.synchronize()
+        log(f"   n={n}: max_abs_err K13 plain {errs[0]}; K14 plain {errs[1]}"
+            f", K13+K14 c++ {errs[2]}; K15 plain {errs[3]} c++ {errs[4]} "
+            f"comb {errs[5]}; K16 plain {errs[6]} host law {errs[7]}")
+        assert not any(errs), f"K13-K16 differ at n={n}: {errs}"
+    from verifiable_mpc_tpu_torch.groups.edwards import EdwardsPoint
+
+    assert bk.msm(pts[:2], [0, ELL]) == EdwardsPoint.identity
+
+
+def check_main_shapes_new(torch, native, mc, bk, ced, add, lm, rng,
+                          n_msm: int, n_bexp: int, n_add: int):
+    """K13 and K14 at protocol 5's commitment (n_msm points), K15 at the
+    generators' shape (n_bexp exponents, beside K4), K16 at n_add: result
+    against the plain version on the same inputs, CUDA-event time, plain
+    time, bound."""
+    from verifiable_mpc_tpu_torch.groups.edwards import ELL, EdwardsPoint
+
+    dev = torch.device(DEV)
+    stats = {}
+    pts = ed_points(native, n_msm, rng, identity_at=(2,))
+    sc = bucket_scalars(ELL, n_msm, rng)
+    rows = ced.encode_points(pts, dev)
+    u64 = torch.from_numpy(
+        mc.scalars_to_u64x4(sc, ELL).view(np.int64).copy()).to(dev)
+    digits = bk.trim_windows(bk.digits_signed8(u64))
+    perm, sgn, D = bk.bucket_layout(digits, 8, bk.LANES)
+    nw, _D, lanes = perm.shape
+    buckets = bk.bucket_accumulate(rows, perm, sgn)
+    plain, k13_plain = cuda_once(
+        torch, lambda: bk.bucket_accumulate_plain(rows, perm, sgn))
+    norm = lambda a: ced.normalize_rows(  # noqa: E731
+        ced.split_rows(a.reshape(-1, 16)))
+    k13_err = max_abs_err(torch, norm(buckets), norm(plain))
+    assert k13_err == 0.0, "K13 bucket sums differ from the plain version"
+    out = bk.bucket_reduce(buckets)
+    out_plain, k14_plain = cuda_once(
+        torch, lambda: bk.bucket_reduce_plain(buckets))
+    k14_err = max_abs_err(torch, out, out_plain)
+    assert k14_err == 0.0, "K14 differs from the plain version"
+    nz = int(torch.count_nonzero(digits))
+    log(f"   bucket layout at n={n_msm}: nw={nw} D={D} (deepest column; "
+        f"{nz} nonzero digits, {perm.numel()} slots)")
+    stats["bucket_accumulate"] = dict(
+        err=k13_err, ms=cuda_ms(torch, lambda: bk.bucket_accumulate(
+            rows, perm, sgn)),
+        plain_ms=k13_plain, shape=f"n={n_msm} nw={nw} D={D} lanes={lanes}",
+        bytes=n_msm * 128 + 2 * perm.numel() * 4 + nw * lanes * 128,
+        muls=n_msm * TO_PRE + nz * ADD_PRE)
+    # per window: the suffix sums and their sum, 2 (lanes - 1) adds; the
+    # Horner ladder over the windows; one normalization
+    stats["bucket_reduce"] = dict(
+        err=k14_err, ms=cuda_ms(torch, lambda: bk.bucket_reduce(buckets)),
+        plain_ms=k14_plain, shape=f"nw={nw} lanes={lanes}",
+        bytes=nw * lanes * 128 + 128,
+        muls=(nw * 2 * (lanes - 1) * ADD + (nw - 1) * 8 * DBL
+              + (nw - 1) * ADD + NORM_EACH + INV))
+
+    exps = [rng.randrange(1, ELL) for _ in range(n_bexp)]
+    pk, nwb = mc.packed_digits(native._ints_to_u64x4(exps, ELL))
+    dig = torch.from_numpy(pk).to(dev)
+    table = mc.bexp_table(EdwardsPoint.generator, dev)
+    got = mc.bexp_rows(table, dig)
+    plain, k15_plain = cuda_once(torch, lambda: mc.bexp_plain(table, dig))
+    k15_err = max_abs_err(torch, got, plain)
+    assert k15_err == 0.0, "K15 differs from the plain version"
+    d = mc.unpack_digits(dig).cpu().numpy()  # [nw, n]
+    nzw = d != 0
+    first = np.where(nzw.any(axis=0), nzw.argmax(axis=0), nwb - 1)
+    stats["bexp"] = dict(
+        err=k15_err, ms=cuda_ms(torch, lambda: mc.bexp_rows(table, dig)),
+        plain_ms=k15_plain, shape=f"n={n_bexp} nw={nwb}",
+        bytes=table.numel() * 8 + dig.numel() + n_bexp * 128,
+        muls=(int((nwb - 1 - first).sum()) * 4 * DBL
+              + int(nzw.sum()) * ADD_PRE + n_bexp * NORM_EACH + INV))
+
+    ps = native._u64_to_pts(ced.to_rows(rows[:n_add]))
+    qs = ed_points(native, n_add, rng, rescale=True)
+    mp = tuple(torch.from_numpy(a).to(dev) for a in lm.encode_points(ps))
+    mq = tuple(torch.from_numpy(a).to(dev) for a in lm.encode_points(qs))
+    got = add.add(mp, mq)
+    plain, k16_plain = cuda_once(torch, lambda: add.add_plain(mp, mq))
+    k16_err = max(max_abs_err(torch, a.to(torch.int64), b.to(torch.int64))
+                  for a, b in zip(got, plain))
+    assert k16_err == 0.0, "K16 differs from the plain version"
+    stats["mont_add"] = dict(
+        err=k16_err, ms=cuda_ms(torch, lambda: add.add(mp, mq)),
+        plain_ms=k16_plain, shape=f"n={n_add}", bytes=n_add * 12 * 64,
+        muls=n_add * ADD)
+    for name, st in stats.items():
+        st["bound_ms"], st["bound_by"] = bound(torch, st["bytes"], st["muls"])
+        log(f"   {name} [{st['shape']}]: {st['ms']:.3f} ms, plain "
+            f"{st['plain_ms']:.1f} ms, bound {st['bound_ms']:.4f} ms "
+            f"({st['bound_by']}), field muls {st['muls']}, "
+            f"max_abs_err {st['err']}")
+    return stats
+
+
+def bucket_sweep(torch, native, mc, bk):
+    """The bucket MSM against K1 + K2 and the C++ tier as the dispatch calls
+    them (host points and scalars in, a host point out), encode to decode
+    (the device encode cache emptied first), best of 3 with distinct
+    scalars every rep; then both MSMs again with the points resident (the
+    flagship's case: its generators stay encoded on the card); the bucket
+    MSM's parts timed apart in the same reps: the scalars' conversion to
+    u64 rows on the host, their upload with the recoding, window trim and
+    layout on the card, and K13 + K14."""
+    from verifiable_mpc_tpu_torch.groups.edwards import ELL
+
+    rng = __import__("random").Random(2026)
+    pts = ed_points(native, 1 << max(BUCKET_SWEEP_LOG2), rng, rescale=False)
+    for lg in BUCKET_SWEEP_LOG2:
+        n = 1 << lg
+        p = pts[:n]
+        t = {k: [] for k in ("bucket", "windowed", "c++", "bucket resident",
+                             "windowed resident", "convert", "layout",
+                             "kernels")}
+        for rep in range(4):  # rep 0 warms up
+            sc = [rng.randrange(ELL) for _ in range(n)]
+            mc._ED_ENC_CACHE.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a = bk.msm(p, sc)
+            t1 = time.perf_counter()
+            mc._ED_ENC_CACHE.clear()
+            b = mc.msm(p, sc)
+            t2 = time.perf_counter()
+            c = native.ed_msm(p, sc)
+            t3 = time.perf_counter()
+            assert a == b == c, f"bucket / K1+K2 / C++ MSMs differ at n={n}"
+            dpts = mc._device_points(p)  # resident from here on
+            torch.cuda.synchronize()
+            r0 = time.perf_counter()
+            a = bk.msm(p, sc)
+            r1 = time.perf_counter()
+            b = mc.msm(p, sc)
+            r2 = time.perf_counter()
+            assert a == b, f"bucket / K1+K2 MSMs differ at n={n}, resident"
+            u0 = time.perf_counter()
+            arr = mc.scalars_to_u64x4(sc, ELL)
+            u1 = time.perf_counter()
+            u64 = torch.from_numpy(arr.view(np.int64).copy()).to(DEV)
+            lay = bk.bucket_layout(bk.trim_windows(bk.digits_signed8(u64)), 8,
+                                   bk.LANES)
+            torch.cuda.synchronize()
+            u2 = time.perf_counter()
+            bk.bucket_reduce(bk.bucket_accumulate(dpts, lay[0], lay[1]))
+            torch.cuda.synchronize()
+            u3 = time.perf_counter()
+            if rep:
+                for key, v in (("bucket", t1 - t0), ("windowed", t2 - t1),
+                               ("c++", t3 - t2), ("bucket resident", r1 - r0),
+                               ("windowed resident", r2 - r1),
+                               ("convert", u1 - u0), ("layout", u2 - u1),
+                               ("kernels", u3 - u2)):
+                    t[key].append(v)
+        best = {key: min(v) * 1e3 for key, v in t.items()}
+        log(f"   sweep n=2^{lg}: bucket {best['bucket']:.3f} ms, K1+K2 "
+            f"{best['windowed']:.3f} ms, c++ {best['c++']:.3f} ms; points "
+            f"resident: bucket {best['bucket resident']:.3f} ms, K1+K2 "
+            f"{best['windowed resident']:.3f} ms; bucket parts: host "
+            f"conversion {best['convert']:.3f} ms, upload + device recoding "
+            f"+ layout {best['layout']:.3f} ms, K13+K14 "
+            f"{best['kernels']:.3f} ms")
+
+
+def parity_bucket(torch, vm, mc, bk):
+    """At 2^12 multiplications, under one seed: the prove with the bucket
+    MSM registered from BUCKET_PARITY_MIN_BATCH points gives the
+    enable_native() prove's normalized bytes; enable_gpu() then restores
+    the backends."""
+    import verifiable_mpc_tpu_torch.ac20.circuit_sat_cb as cs
+    from verifiable_mpc_tpu_torch import rng, serialization
+
+    vm.enable_gpu(DEV)
+    group, gf, circuit, x, g_length = padded_circuit(vm, PARITY_LOG2_MULS)
+    pc = cs.PivotChoice.compressed
+    with rng.deterministic(2030):
+        gens = cs.create_generators(g_length, pc, group)
+    vm.enable_native()
+    with rng.deterministic(2031):
+        p_native = cs.circuit_sat_prover(gens, circuit, x, gf, pc)
+    vm.enable_gpu(DEV)
+    bk.register(min_batch=BUCKET_PARITY_MIN_BATCH)
+    mc.reset_launches()
+    with rng.deterministic(2031):
+        p_gpu = cs.circuit_sat_prover(gens, circuit, x, gf, pc)
+    served = {k: mc.LAUNCHES[k] for k in BUCKET_KERNELS}
+    ok = verified(cs.circuit_sat_verifier(p_gpu, gens, circuit, gf, pc))
+    vm.enable_gpu(DEV)
+    assert all(served.values()), f"the bucket MSM never ran: {served}"
+    b_native = serialization.dumps(canonical(p_native))
+    b_gpu = serialization.dumps(canonical(p_gpu))
+    assert b_native == b_gpu, "bucket and C++ proofs differ at 2^12"
+    assert ok, "the bucket prove at 2^12 did not verify"
+    log(f"   2^{PARITY_LOG2_MULS} muls with the bucket MSM from "
+        f"{BUCKET_PARITY_MIN_BATCH} points ({served}): {len(b_gpu)} proof "
+        "bytes identical to the C++ tier's, verified")
+
+
+def entry_points(torch, native, mc, add, lm, rng):
+    """K15 and K16 through their entry points (msm_cuda.batch_exp,
+    add_cuda.add on Montgomery limbs), counts zeroed just before and read
+    just after; results against the C++ tier and the host law."""
+    from verifiable_mpc_tpu_torch.groups.edwards import ELL, EdwardsPoint
+
+    base = EdwardsPoint.generator ** rng.randrange(1, ELL)
+    exps = [rng.randrange(ELL) for _ in range(4096)]
+    ps = ed_points(native, 4096, rng)
+    qs = ed_points(native, 4096, rng)[::-1]
+    mp = tuple(torch.from_numpy(a).to(DEV) for a in lm.encode_points(ps))
+    mq = tuple(torch.from_numpy(a).to(DEV) for a in lm.encode_points(qs))
+    mc.reset_launches()
+    t0 = time.perf_counter()
+    got = mc.batch_exp(base, exps)
+    t1 = time.perf_counter()
+    out = add.add(mp, mq)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {k: mc.LAUNCHES[k] for k in ENTRY_KERNELS}
+    assert got == native.ed_batch_exp(base, exps), "batch_exp != C++ tier"
+    assert lm.decode_points(tuple(c.cpu().numpy() for c in out)) == [
+        a * b for a, b in zip(ps, qs)], "add != host law"
+    assert all(launches.values()), f"an entry point missed its kernel: " \
+        f"{launches}"
+    log(f"   batch_exp of 4096 exponents {1e3 * (t1 - t0):.3f} ms, add of "
+        f"4096 Montgomery points {1e3 * (t2 - t1):.3f} ms (host to host); "
+        f"launches {launches}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1213,6 +1561,9 @@ def main() -> int:
     from verifiable_mpc_tpu_torch.ops import curve_ed as ced
     from verifiable_mpc_tpu_torch.ops import msm_bn2_cuda as mb2
     from verifiable_mpc_tpu_torch.ops import msm_bn_cuda as mb
+    from verifiable_mpc_tpu_torch.ops import add_cuda as add
+    from verifiable_mpc_tpu_torch.ops import limbs_mont as lm
+    from verifiable_mpc_tpu_torch.ops import msm_bucket_cuda as bk
     from verifiable_mpc_tpu_torch.ops import msm_cuda as mc
 
     with Phase("card"):
@@ -1231,10 +1582,16 @@ def main() -> int:
         check_small(torch, native, mc, ced, rng)
         check_small_bn(torch, native, mc, mb, cbn, rng)
         check_small_bn2(torch, native, mc, mb2, cb2, rng)
+        check_small_new(torch, native, mc, bk, ced, add, lm, rng)
     g_half = 1 << (FLAGSHIP_LOG2_MULS + 1)  # round 0 of a 2^18 vector
     with Phase("kernels at the flagship's shapes"):
         stats = check_main_shapes(torch, native, mc, ced, rng, g_half,
                                   (1 << (FLAGSHIP_LOG2_MULS + 2)) - 1)
+    with Phase("bucket MSM, batch-exp and Montgomery add at their shapes"):
+        stats.update(check_main_shapes_new(
+            torch, native, mc, bk, ced, add, lm, rng,
+            1 << (FLAGSHIP_LOG2_MULS + 2), (1 << (FLAGSHIP_LOG2_MULS + 2)) - 1,
+            MONT_ADD_SHAPE))
     with Phase("BN kernels at the Pinocchio path's shapes"):
         stats.update(check_main_shapes_bn(torch, native, mc, mb, cbn, rng,
                                           SNARK_SHAPE))
@@ -1247,12 +1604,23 @@ def main() -> int:
         bn_bench(torch, native, mc, mb, rng)
     with Phase("twist msm and batch-exp against the C++ tier"):
         bn2_bench(torch, native, mb2, rng)
+    with Phase("bucket MSM against K1 + K2 and the C++ tier"):
+        bucket_sweep(torch, native, mc, bk)
     with Phase("engine cut-over"):
         cutover(torch, native, mc, ced, rng)
+    with Phase(f"build the 2^{FLAGSHIP_LOG2_MULS}-multiplication circuit"):
+        built = padded_circuit(vm, FLAGSHIP_LOG2_MULS)
     with Phase(f"flagship 2^{FLAGSHIP_LOG2_MULS}"):
-        launches = flagship(torch, vm, mc)
+        launches = flagship(torch, vm, mc, built)
     with Phase(f"parity 2^{PARITY_LOG2_MULS}"):
         parity(torch, vm)
+    with Phase(f"flagship 2^{FLAGSHIP_LOG2_MULS} with the bucket MSM"):
+        bucket_launches = flagship(torch, vm, mc, built, bk)
+    del built
+    with Phase(f"parity 2^{PARITY_LOG2_MULS} with the bucket MSM"):
+        parity_bucket(torch, vm, mc, bk)
+    with Phase("K15 and K16 through their entry points"):
+        entry_launches = entry_points(torch, native, mc, add, lm, rng)
     with Phase(f"Pinocchio 2^{SNARK_LOG2_MULS}"):
         bn_launches = pinocchio(torch, vm, mc)
     with Phase(f"Pinocchio parity 2^{SNARK_PARITY_LOG2_MULS}"):
@@ -1263,6 +1631,10 @@ def main() -> int:
     for name in SOURCES:
         if name.startswith(BN_PATH):
             launches[name] = bn_launches[name]
+        elif name in BUCKET_KERNELS:
+            launches[name] = bucket_launches[name]
+        elif name in ENTRY_KERNELS:
+            launches[name] = entry_launches[name]
     kernels = [
         {
             "name": name, "route": "cuda",

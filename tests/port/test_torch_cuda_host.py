@@ -1,7 +1,11 @@
 """The CUDA kernels' per-thread bodies (csrc/ed25519_kernels.cuh over
 csrc/fe25519.cuh), built with g++ for the CPU, against the plain PyTorch
 versions on the same inputs: the field and curve code of the kernels gets
-checked without a card.  Compiles a C++ file, so it is marked slow."""
+checked without a card.  The bucket MSM's bodies (K13's add with
+negation, K14's suffix-scan and tree steps and its 8-bit Horner ladder),
+K15's ladder and K16's Montgomery conversions are held against their
+plain versions (msm_bucket_cuda, msm_cuda.bexp_plain, add_cuda.add_plain)
+and against Python ints.  Compiles a C++ file, so it is marked slow."""
 
 import ctypes
 import pathlib
@@ -43,11 +47,14 @@ def k():
     collection (every xdist worker collects this file)."""
     import torch
 
-    from verifiable_mpc_tpu_torch.ops import curve_ed, msm_cuda
+    from verifiable_mpc_tpu_torch.ops import (add_cuda, curve_ed, limbs_mont,
+                                              msm_bucket_cuda, msm_cuda)
 
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield types.SimpleNamespace(torch=torch, ced=curve_ed, mc=msm_cuda)
+    yield types.SimpleNamespace(torch=torch, ced=curve_ed, mc=msm_cuda,
+                                bk=msm_bucket_cuda, add=add_cuda,
+                                lm=limbs_mont)
     torch.set_num_threads(n)
 
 
@@ -141,3 +148,104 @@ def test_comb_body_matches_plain(host_lib, n, k):
     host_lib.host_comb_norm(_p(tb), _p(pk), n, nw, _p(out))
     plain = k.mc.comb_plain(table, k.torch.from_numpy(pk))
     assert np.array_equal(out, k.ced.to_rows(plain))
+
+
+def _rescaled_points(n, seed):
+    """Rows of n points, every third one with Z != 1 and point 2 the
+    identity (1 : 1 : 1 : 0) scaled, as K13 and K16 meet them."""
+    rng = random.Random(seed)
+    pts = native.ed_batch_exp(EdwardsPoint.generator,
+                              [rng.randrange(1, ELL) for _ in range(n)])
+    if n > 2:
+        pts[2] = EdwardsPoint.identity
+    for i in range(0, n, 3):
+        lam = rng.randrange(2, P)
+        q = pts[i]
+        pts[i] = EdwardsPoint(q.x * lam, q.y * lam, q.z * lam, q.t * lam)
+    return pts
+
+
+def _bucket_inputs(k, n, seed):
+    """Rows, layout and bucket sums (plain K13) of an MSM of n points with
+    edge scalars, the digits 128 and -128 among them."""
+    sc = ([ELL - 1, 1, 128 + (128 << 8), ELL - 128, ELL // 2, ELL // 2 + 1]
+          + _scalars(n, seed))[:n]
+    rows = np.ascontiguousarray(native._pts_to_u64(_rescaled_points(n, seed)))
+    perm, sgn = k.bk.layout_for(sc, 8, k.bk.LANES, "cpu")
+    plain = k.bk.bucket_accumulate_plain(
+        k.ced.from_reference_rows(rows, "cpu"), perm, sgn)
+    return sc, rows, perm, sgn, plain
+
+
+@pytest.mark.parametrize("n,seg", [(1, 64), (17, 3), (64, 5)])
+def test_bucket_accum_bodies_match_plain(host_lib, n, seg, k):
+    """K13's three steps (precomputed form, segment sums, column sums)
+    against the plain version: equal bucket sums once normalized (the two
+    add in other orders)."""
+    _sc, rows, perm, sgn, plain = _bucket_inputs(k, n, n)
+    nw, D, lanes = perm.shape
+    nseg = -(-D // seg)
+    pm, sg = perm.numpy().copy(), sgn.numpy().copy()
+    pre = np.zeros((n, 16), np.uint64)
+    part = np.zeros((nseg, nw * lanes, 16), np.uint64)
+    used = np.zeros((nseg, nw * lanes), np.uint8)
+    out = np.zeros((nw * lanes, 16), np.uint64)
+    host_lib.host_bucket_accum(_p(rows), _p(pre), _p(pm), _p(sg), _p(part),
+                               _p(used), _p(out), n, nw, D, lanes, seg)
+    norm = lambda t: k.ced.normalize_rows(k.ced.split_rows(t))  # noqa: E731
+    got = k.ced.from_reference_rows(out, "cpu")
+    assert k.torch.equal(norm(got), norm(plain.reshape(-1, 16)))
+
+
+@pytest.mark.parametrize("n", [1, 17, 64])
+def test_bucket_reduce_bodies_match_plain_and_native(host_lib, n, k):
+    """K14's suffix-scan and tree steps, run step by step, and its Horner
+    ladder (8 doublings a window) against the plain version and the C++
+    tier's MSM of the same points and scalars."""
+    sc, rows, _perm, _sgn, plain = _bucket_inputs(k, n, 3 * n)
+    nw, lanes, _ = plain.shape
+    buckets = np.ascontiguousarray(k.ced.to_rows(plain))
+    buf = np.zeros((2, lanes, 16), np.uint64)
+    wsum = np.zeros((nw, 16), np.uint64)
+    out = np.zeros(16, np.uint64)
+    host_lib.host_bucket_reduce(_p(buckets), _p(buf), _p(wsum), _p(out), nw,
+                                lanes)
+    expect = k.ced.to_rows(k.bk.bucket_reduce_plain(plain))[0]
+    assert np.array_equal(out, expect)
+    host = native.ed_msm(native._u64_to_pts(rows), sc)
+    assert native._u64_to_pts(out[None])[0] == host
+
+
+@pytest.mark.parametrize("n", [1, 7, 40])
+def test_bexp_body_matches_plain(host_lib, n, k):
+    sc = _scalars(n, 7 * n)
+    pk, nw = k.mc.packed_digits(native._ints_to_u64x4(sc, ELL))
+    base = EdwardsPoint.generator ** 4242
+    table = k.mc.bexp_table(base, "cpu")
+    tb = np.ascontiguousarray(k.ced.to_rows(table))
+    out = np.zeros((n, 16), np.uint64)
+    host_lib.host_bexp_norm(_p(tb), _p(pk), n, nw, _p(out))
+    plain = k.mc.bexp_plain(table, k.torch.from_numpy(pk))
+    assert np.array_equal(out, k.ced.to_rows(plain))
+    assert native._u64_to_pts(out) == [base ** s for s in sc]
+
+
+@pytest.mark.parametrize("n", [1, 9])
+def test_mont_add_body_matches_plain_and_ints(host_lib, n, k):
+    """K16: Montgomery limbs in, the unified add, canonical Montgomery
+    limbs out, against the plain version limb for limb and against the
+    host law; the conversions against Python ints."""
+    pts_p = _rescaled_points(n, 11 * n)
+    pts_q = _rescaled_points(n, 11 * n + 1)[::-1]
+    mp, mq = k.lm.encode_points(pts_p), k.lm.encode_points(pts_q)
+    outs = [np.zeros((n, 16), np.uint32) for _ in range(4)]
+    host_lib.host_mont_add(*(_p(a) for a in (*mp, *mq, *outs)), n)
+    plain = k.add.add_plain(tuple(k.torch.from_numpy(a) for a in mp),
+                            tuple(k.torch.from_numpy(a) for a in mq))
+    for a, b in zip(outs, plain):
+        assert np.array_equal(a, b.numpy())
+    assert k.lm.decode_points(outs) == [a * b for a, b in zip(pts_p, pts_q)]
+    for c in outs:
+        assert all(v < P for v in k.lm.limbs_to_ints(c))
+    assert k.lm.limbs_to_ints(mp[0]) == [pt.x * (1 << 256) % P
+                                         for pt in pts_p]

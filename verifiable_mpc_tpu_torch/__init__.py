@@ -7,7 +7,8 @@ NVIDIA Hopper (``csrc/``).  The port carries the flagship path (generator
 setup, prove and verify of AC20 circuit satisfiability with the compressed
 pivot over Ed25519) and the BN256 path (Pinocchio key generation,
 proving and verifying, over G1 and the twist G2; the KoE pivot's G1
-work).
+work), and the Ed25519 bucket-method MSM, opt-in as in the JAX package
+(``ops.msm_bucket_cuda.register()`` after :func:`enable_gpu`).
 
 Entry points: :func:`enable_gpu` installs the GPU kernels behind the
 dispatch layer; :func:`enable_native` the C++ host tier.  The package

@@ -1,5 +1,6 @@
-// Per-thread bodies of the Ed25519 kernels K1-K4 (msm_accum.cu,
-// msm_tail.cu, fold.cu and comb.cu launch them).  They are __host__
+// Per-thread bodies of the Ed25519 kernels K1-K4 and K13-K16 (msm_accum.cu,
+// msm_tail.cu, fold.cu, comb.cu, bucket_accum.cu, bucket_reduce.cu,
+// bexp.cu and ed_add_mont.cu launch them).  They are __host__
 // __device__ so that the same code also builds with g++ and can be checked
 // on the CPU against the plain PyTorch versions in ops/msm_cuda.py.
 //
@@ -8,6 +9,10 @@
 //                of native._pts_to_u64)
 //   pre row      16 x u64: Y+X, Y-X, 2dT, 2Z (precomputed form)
 //   packed digits u8 [nw/2][n] (digits.cuh)
+//   bucket layout int32 [nw][D][lanes] perm (point index, -1 = padding)
+//                and sgn (1 = negate), msm_bucket_cuda.bucket_layout
+//   Montgomery limbs u32 [n][16] per coordinate: 16-bit limbs of x * 2^256
+//                mod p, least significant first (ops/limbs_mont.py)
 
 #pragma once
 
@@ -50,13 +55,15 @@ FE_FN void msm_accum_one(const uint64_t *pts, const uint8_t *digits,
   ge_store(acc_row, acc);
 }
 
-// K2 second phase body (B2's Horner, msm_pallas._make_tail_kernel):
-// window sums [nw] (most significant first) -> canonical normalized row.
-FE_FN void msm_horner_one(const uint64_t *wsum, uint64_t *out_row, int nw) {
+// K2 second phase body (B2's Horner, msm_pallas._make_tail_kernel), also
+// K14's (B7's Horner, with bits = 8): window sums [nw] (most significant
+// first) -> canonical normalized row of sum_w 2^(bits (nw-1-w)) wsum[w].
+FE_FN void msm_horner_one(const uint64_t *wsum, uint64_t *out_row, int nw,
+                          int bits) {
   ge_ext h;
   ge_identity(h);
   for (int w = 0; w < nw; w++) {
-    for (int k = 0; k < 4; k++) {
+    for (int k = 0; k < bits; k++) {
       ge_ext t;
       ge_dbl(t, h);
       h = t;
@@ -127,4 +134,200 @@ FE_FN void comb_norm_one(const uint64_t *table, const uint8_t *digits, int n,
     acc = t;
   }
   ge_store_normalized(out_row, acc);
+}
+
+// ---------------------------------------------------------------------------
+// K13 bodies (B6, msm_bucket._make_accum_kernel): bucket accumulation
+// ---------------------------------------------------------------------------
+
+FE_FN void ge_pre_store(uint64_t *row, const ge_pre &q) {
+  fe_store(row, q.ypx);
+  fe_store(row + 4, q.ymx);
+  fe_store(row + 8, q.t2d);
+  fe_store(row + 12, q.z2);
+}
+
+// K13's first launch: a point row -> its precomputed-form row
+FE_FN void bucket_pre_one(const uint64_t *pt_row, uint64_t *pre_row) {
+  ge_ext p;
+  ge_pre q;
+  ge_load(p, pt_row);
+  ge_to_pre(q, p);
+  ge_pre_store(pre_row, q);
+}
+
+// The partial sum of rows d0 .. d1-1 of bucket column (w, b): each entry
+// is the precomputed-form row of point perm[w][d][b], negated where
+// sgn[w][d][b] != 0 (its first two coordinates swap, 2dT negates); a
+// padding entry (-1) adds the identity, so it is skipped.  Returns the
+// number of points added.
+FE_FN int bucket_accum_one(const uint64_t *pre, const int32_t *perm,
+                           const int32_t *sgn, int D, int lanes, int w, int b,
+                           int d0, int d1, uint64_t *out_row) {
+  ge_ext acc;
+  ge_identity(acc);
+  int added = 0;
+  for (int d = d0; d < d1; d++) {
+    size_t k = ((size_t)w * D + d) * lanes + b;
+    int i = perm[k];
+    if (i < 0) continue;
+    ge_pre q;
+    ge_pre_load(q, pre + (size_t)i * 16);
+    if (sgn[k]) ge_pre_neg(q);
+    ge_ext t;
+    ge_add_pre(t, acc, q);
+    acc = t;
+    added++;
+  }
+  ge_store(out_row, acc);
+  return added;
+}
+
+// K13's last launch: bucket c's sum over the segment partials
+// part [nseg][cols][16], skipping those whose segment added no point
+// (used [nseg][cols] is 0: the partial is the identity)
+FE_FN void bucket_segsum_one(const uint64_t *part, const uint8_t *used,
+                             int nseg, int cols, int c, uint64_t *out_row) {
+  ge_ext acc;
+  ge_identity(acc);
+  for (int s = 0; s < nseg; s++) {
+    size_t k = (size_t)s * cols + c;
+    if (!used[k]) continue;
+    ge_ext p, t;
+    ge_load(p, part + k * 16);
+    ge_add(t, acc, p);
+    acc = t;
+  }
+  ge_store(out_row, acc);
+}
+
+// ---------------------------------------------------------------------------
+// K14 bodies (B7, msm_bucket._make_reduce_kernel): sum_b (b+1) B_b of a
+// window as sum_b suffix(B)_b
+// ---------------------------------------------------------------------------
+
+// one Hillis-Steele step of the inclusive suffix scan over a window's
+// bucket rows: dst[b] = src[b] + src[b + shift] (the identity past the last
+// bucket)
+FE_FN void bucket_scan_step(const uint64_t *src, uint64_t *dst, int lanes,
+                            int b, int shift) {
+  ge_ext x;
+  ge_load(x, src + (size_t)b * 16);
+  if (b + shift < lanes) {
+    ge_ext y, t;
+    ge_load(y, src + (size_t)(b + shift) * 16);
+    ge_add(t, x, y);
+    x = t;
+  }
+  ge_store(dst + (size_t)b * 16, x);
+}
+
+// one step of the tree sum over the lanes: buf[b] += buf[b + stride]
+FE_FN void bucket_tree_step(uint64_t *buf, int lanes, int b, int stride) {
+  if (b + stride >= lanes) return;
+  ge_ext x, y, t;
+  ge_load(x, buf + (size_t)b * 16);
+  ge_load(y, buf + (size_t)(b + stride) * 16);
+  ge_add(t, x, y);
+  ge_store(buf + (size_t)b * 16, t);
+}
+
+// ---------------------------------------------------------------------------
+// K15 body (B4's Ed25519 instance, msm_pallas._make_bexp_kernel)
+// ---------------------------------------------------------------------------
+
+// base^e_i by a signed-window Horner ladder over the precomputed-form
+// table tbl [9] of the base's multiples 0..8: 4 doublings (none before the
+// exponent's first nonzero window) and a mixed add of +-T[|d|] per window;
+// the result leaves as a canonical affine row.
+FE_FN void bexp_norm_one(const uint64_t *tbl, const uint8_t *digits, int n,
+                         int nw, int i, uint64_t *out_row) {
+  ge_ext acc;
+  ge_identity(acc);
+  bool started = false;
+  for (int w = 0; w < nw; w++) {
+    if (started) {
+      for (int k = 0; k < 4; k++) {
+        ge_ext t;
+        ge_dbl(t, acc);
+        acc = t;
+      }
+    }
+    int d = digit_at(digits, n, w, i);
+    if (d == 0) continue;
+    ge_pre sel;
+    ge_pre_load(sel, tbl + (size_t)(d < 0 ? -d : d) * 16);
+    if (d < 0) ge_pre_neg(sel);
+    ge_ext t;
+    ge_add_pre(t, acc, sel);
+    acc = t;
+    started = true;
+  }
+  ge_store_normalized(out_row, acc);
+}
+
+// ---------------------------------------------------------------------------
+// K16 body (B8, pallas_kernels._add_kernel): the unified add on Montgomery
+// limbs
+// ---------------------------------------------------------------------------
+
+// 16 x 16-bit limbs held in u32 words <-> eight 32-bit limbs
+FE_FN void fe_from_limbs16(fe &r, const uint32_t *l) {
+  for (int i = 0; i < 8; i++)
+    r.v[i] = (l[2 * i] & 0xffffu) | (l[2 * i + 1] << 16);
+}
+
+FE_FN void fe_to_limbs16(uint32_t *l, const fe &a) {
+  for (int i = 0; i < 8; i++) {
+    l[2 * i] = a.v[i] & 0xffffu;
+    l[2 * i + 1] = a.v[i] >> 16;
+  }
+}
+
+// Montgomery limbs of x * R, R = 2^256 == 38 (mod p) -> x: times 38^-1
+FE_FN void mont_load(fe &r, const uint32_t *l) {
+  const uint32_t k[8] = {0x9435e50au, 0x435e50d7u, 0x35e50d79u, 0x5e50d794u,
+                         0xe50d7943u, 0x50d79435u, 0x0d79435eu, 0x179435e5u};
+  fe a, inv38;
+  for (int i = 0; i < 8; i++) inv38.v[i] = k[i];
+  fe_from_limbs16(a, l);
+  fe_mul(r, a, inv38);
+}
+
+// x -> the limbs of its canonical Montgomery form 38 x mod p
+FE_FN void mont_store(uint32_t *l, const fe &a) {
+  fe k, t, c;
+  fe_small(k, 38);
+  fe_mul(t, a, k);
+  fe_canon(c, t);
+  fe_to_limbs16(l, c);
+}
+
+// coordinate arrays x, y, z, t [n][16] of a point vector in Montgomery limbs
+struct MontCoords {
+  const uint32_t *x, *y, *z, *t;
+};
+struct MontCoordsOut {
+  uint32_t *x, *y, *z, *t;
+};
+
+// element i: p_i + q_i (add-2008-hwcd-3, complete), in and out as
+// canonical Montgomery limbs
+FE_FN void mont_add_one(const MontCoords &p, const MontCoords &q,
+                        const MontCoordsOut &o, size_t i) {
+  size_t k = i * 16;
+  ge_ext a, b, r;
+  mont_load(a.X, p.x + k);
+  mont_load(a.Y, p.y + k);
+  mont_load(a.Z, p.z + k);
+  mont_load(a.T, p.t + k);
+  mont_load(b.X, q.x + k);
+  mont_load(b.Y, q.y + k);
+  mont_load(b.Z, q.z + k);
+  mont_load(b.T, q.t + k);
+  ge_add(r, a, b);
+  mont_store(o.x + k, r.X);
+  mont_store(o.y + k, r.Y);
+  mont_store(o.z + k, r.Z);
+  mont_store(o.t + k, r.T);
 }

@@ -4,11 +4,14 @@
 // bn254_kernels.cuh and fp2_254.cuh / bn2_kernels.cuh can be checked
 // against the plain PyTorch versions without a GPU
 // (tests/port/test_torch_cuda_host.py, tests/port/test_torch_bn_host.py,
-// tests/port/test_torch_bn2_host.py).
+// tests/port/test_torch_bn2_host.py).  A kernel whose threads meet in
+// shared memory (K14's scan and tree) runs its steps here one thread after
+// the other, each step's threads reading what the step before wrote.
 //
 //   g++ -O2 -shared -fPIC -o libhost_check.so host_check.cc
 
 #include <stdint.h>
+#include <string.h>
 
 #include "bn254_kernels.cuh"
 #include "bn2_kernels.cuh"
@@ -33,7 +36,7 @@ void host_msm(const uint64_t *pts, const uint8_t *digits, int n, int nw,
     }
     ge_store(wsum + (size_t)w * 16, sum);
   }
-  msm_horner_one(wsum, out, nw);
+  msm_horner_one(wsum, out, nw, 4);
 }
 
 void host_fold_norm(const uint64_t *gl, const uint64_t *gr,
@@ -47,6 +50,71 @@ void host_comb_norm(const uint64_t *table, const uint8_t *digits, int n,
                     int nw, uint64_t *out) {
   for (int i = 0; i < n; i++)
     comb_norm_one(table, digits, n, nw, i, out + (size_t)i * 16);
+}
+
+// K13: pts [n][16], pre [n][16] scratch, perm and sgn [nw][D][lanes],
+// part [nseg][nw * lanes][16] and used [nseg][nw * lanes] scratch ->
+// out [nw][lanes][16]
+void host_bucket_accum(const uint64_t *pts, uint64_t *pre, const int32_t *perm,
+                       const int32_t *sgn, uint64_t *part, uint8_t *used,
+                       uint64_t *out, int n, int nw, int D, int lanes,
+                       int seg) {
+  for (int i = 0; i < n; i++)
+    bucket_pre_one(pts + (size_t)i * 16, pre + (size_t)i * 16);
+  int nseg = (D + seg - 1) / seg;
+  int cols = nw * lanes;
+  for (int s = 0; s < nseg; s++)
+    for (int c = 0; c < cols; c++) {
+      int d0 = s * seg;
+      int d1 = d0 + seg < D ? d0 + seg : D;
+      size_t k = (size_t)s * cols + c;
+      used[k] = bucket_accum_one(pre, perm, sgn, D, lanes, c / lanes,
+                                 c % lanes, d0, d1, part + k * 16) > 0;
+    }
+  for (int c = 0; c < cols; c++)
+    bucket_segsum_one(part, used, nseg, cols, c, out + (size_t)c * 16);
+}
+
+// K14: buckets [nw][lanes][16], buf [2][lanes][16] scratch,
+// wsum [nw][16] scratch -> out [16]
+void host_bucket_reduce(const uint64_t *buckets, uint64_t *buf, uint64_t *wsum,
+                        uint64_t *out, int nw, int lanes) {
+  for (int w = 0; w < nw; w++) {
+    uint64_t *cur = buf, *nxt = buf + (size_t)lanes * 16;
+    memcpy(cur, buckets + (size_t)w * lanes * 16,
+           sizeof(uint64_t) * lanes * 16);
+    for (int shift = 1; shift < lanes; shift <<= 1) {
+      for (int b = 0; b < lanes; b++)
+        bucket_scan_step(cur, nxt, lanes, b, shift);
+      uint64_t *t = cur;
+      cur = nxt;
+      nxt = t;
+    }
+    int p2 = 1;
+    while (p2 < lanes) p2 <<= 1;
+    for (int stride = p2 >> 1; stride > 0; stride >>= 1)
+      for (int b = 0; b < stride; b++) bucket_tree_step(cur, lanes, b, stride);
+    memcpy(wsum + (size_t)w * 16, cur, sizeof(uint64_t) * 16);
+  }
+  msm_horner_one(wsum, out, nw, 8);
+}
+
+// K15: table [9][16] precomputed-form rows, digits [nw/2][n] -> out [n][16]
+void host_bexp_norm(const uint64_t *table, const uint8_t *digits, int n,
+                    int nw, uint64_t *out) {
+  for (int i = 0; i < n; i++)
+    bexp_norm_one(table, digits, n, nw, i, out + (size_t)i * 16);
+}
+
+// K16: p, q, out: x, y, z, t [n][16] u32 Montgomery limbs each
+void host_mont_add(const uint32_t *px, const uint32_t *py, const uint32_t *pz,
+                   const uint32_t *pt, const uint32_t *qx, const uint32_t *qy,
+                   const uint32_t *qz, const uint32_t *qt, uint32_t *ox,
+                   uint32_t *oy, uint32_t *oz, uint32_t *ot, int n) {
+  MontCoords p = {px, py, pz, pt};
+  MontCoords q = {qx, qy, qz, qt};
+  MontCoordsOut o = {ox, oy, oz, ot};
+  for (int i = 0; i < n; i++) mont_add_one(p, q, o, (size_t)i);
 }
 
 // field ops on single values (4 u64 limbs each), for edge-value checks

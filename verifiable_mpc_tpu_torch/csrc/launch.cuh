@@ -1,4 +1,4 @@
-// Launch helpers shared by the kernel sources (K1-K12).  Each source
+// Launch helpers shared by the kernel sources (K1-K16).  Each source
 // builds to its own object (one nvcc per source, run in parallel) and the
 // objects link into one library with a plain C interface.
 

@@ -52,7 +52,7 @@ __global__ void msm_horner_kernel(const uint64_t *wsum, uint64_t *out, int B,
                                   int nw) {
   int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  msm_horner_one(wsum + (size_t)b * nw * 16, out + (size_t)b * 16, nw);
+  msm_horner_one(wsum + (size_t)b * nw * 16, out + (size_t)b * 16, nw, 4);
 }
 
 // acc [B][nw][S][16] -> wsum [B][nw][16] (scratch) -> out [B][16]

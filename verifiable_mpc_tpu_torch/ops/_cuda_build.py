@@ -22,7 +22,8 @@ BUILD = os.path.join(_PKG, "build")
 SOURCES = ("msm_accum.cu", "msm_tail.cu", "fold.cu", "comb.cu",
            "bn_msm_accum.cu", "bn_msm_tail.cu", "bn_fold.cu", "bn_comb.cu",
            "bn2_msm_accum.cu", "bn2_msm_tail.cu", "bn2_bexp.cu",
-           "bn2_fold.cu")
+           "bn2_fold.cu", "bucket_accum.cu", "bucket_reduce.cu", "bexp.cu",
+           "ed_add_mont.cu")
 HEADERS = ("fe25519.cuh", "ed25519_kernels.cuh", "fp254.cuh",
            "bn254_kernels.cuh", "fp2_254.cuh", "bn2_kernels.cuh",
            "digits.cuh", "launch.cuh")
@@ -77,12 +78,19 @@ def lib():
         so.vmpc_cu_bn2_msm_tail.argtypes = [vp, vp, vp, ci, ci, ci, vp]
         so.vmpc_cu_bn2_bexp.argtypes = [vp, vp, vp, ci, ci, vp, vp]
         so.vmpc_cu_bn2_fold_norm.argtypes = [vp, vp, vp, vp, ci, vp, ci, vp]
+        so.vmpc_cu_bucket_accum.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci,
+                                            ci, ci, ci, ci, vp]
+        so.vmpc_cu_bucket_reduce.argtypes = [vp, vp, vp, ci, ci, vp]
+        so.vmpc_cu_bexp_norm.argtypes = [vp, vp, ci, ci, vp, vp]
+        so.vmpc_cu_mont_add.argtypes = [vp] * 12 + [ci, vp]
         for fn in (so.vmpc_cu_msm_accum, so.vmpc_cu_msm_tail,
                    so.vmpc_cu_fold_norm, so.vmpc_cu_comb_norm,
                    so.vmpc_cu_bn_msm_accum, so.vmpc_cu_bn_msm_tail,
                    so.vmpc_cu_bn_fold_norm, so.vmpc_cu_bn_comb_norm,
                    so.vmpc_cu_bn2_msm_accum, so.vmpc_cu_bn2_msm_tail,
-                   so.vmpc_cu_bn2_bexp, so.vmpc_cu_bn2_fold_norm):
+                   so.vmpc_cu_bn2_bexp, so.vmpc_cu_bn2_fold_norm,
+                   so.vmpc_cu_bucket_accum, so.vmpc_cu_bucket_reduce,
+                   so.vmpc_cu_bexp_norm, so.vmpc_cu_mont_add):
             fn.restype = ci
         _lib = so
     return _lib

@@ -277,9 +277,10 @@ def _digits(scalars):
 def msm(points, scalars) -> BNTwistPoint:
     """prod points[i] ** scalars[i] on the twist through K9 + K10."""
     assert len(points) == len(scalars)
+    dev = mc.current_device()
     pk, _nw = _digits(scalars)
-    digits = torch.from_numpy(pk).to(mc.DEVICE)
-    out = msm_rows(cb2.encode_points(points, mc.DEVICE)[None], digits[None])
+    digits = torch.from_numpy(pk).to(dev)
+    out = msm_rows(cb2.encode_points(points, dev)[None], digits[None])
     return cb2.decode_rows(out)[0]
 
 
@@ -287,8 +288,9 @@ def fold(g_l, g_r, c: int) -> list:
     """[g_l[i] ** c * g_r[i]] (normalized) through K12."""
     assert len(g_l) == len(g_r)
     cdig = mc.scalar_digits([int(c)], ORDER)[:, 0]
-    out = fold_rows(cb2.encode_points(g_l, mc.DEVICE),
-                    cb2.encode_points(g_r, mc.DEVICE), cdig)
+    dev = mc.current_device()
+    out = fold_rows(cb2.encode_points(g_l, dev), cb2.encode_points(g_r, dev),
+                    cdig)
     return cb2.decode_rows(out)
 
 
@@ -298,11 +300,12 @@ def bexp_table(base, device=None) -> torch.Tensor:
     pts = [BNTwistPoint.identity, base]
     for _ in range(2, TABLE_S):
         pts.append(pts[-1] * base)
-    return cb2.encode_points(pts, device or mc.DEVICE)
+    return cb2.encode_points(pts, mc.current_device(device))
 
 
 def batch_exp(base, exponents) -> list:
     """[base ** e for e in exponents] (normalized) through K11."""
+    dev = mc.current_device()
     pk, _nw = _digits(exponents)
-    out = bexp_rows(bexp_table(base), torch.from_numpy(pk).to(mc.DEVICE))
+    out = bexp_rows(bexp_table(base), torch.from_numpy(pk).to(dev))
     return cb2.decode_rows(out)

@@ -268,9 +268,10 @@ def _digits(scalars):
 def msm(points, scalars) -> BNPoint:
     """prod points[i] ** scalars[i] (BN256 G1) through K5 + K6."""
     assert len(points) == len(scalars)
+    dev = mc.current_device()
     pk, _nw = _digits(scalars)
-    digits = torch.from_numpy(pk).to(mc.DEVICE)
-    out = msm_rows(cbn.encode_points(points, mc.DEVICE)[None], digits[None])
+    digits = torch.from_numpy(pk).to(dev)
+    out = msm_rows(cbn.encode_points(points, dev)[None], digits[None])
     return cbn.decode_rows(out)[0]
 
 
@@ -278,8 +279,9 @@ def fold(g_l, g_r, c: int) -> list:
     """[g_l[i] ** c * g_r[i]] (normalized) through K7."""
     assert len(g_l) == len(g_r)
     cdig = mc.scalar_digits([int(c)], ORDER)[:, 0]
-    out = fold_rows(cbn.encode_points(g_l, mc.DEVICE),
-                    cbn.encode_points(g_r, mc.DEVICE), cdig)
+    dev = mc.current_device()
+    out = fold_rows(cbn.encode_points(g_l, dev), cbn.encode_points(g_r, dev),
+                    cdig)
     return cbn.decode_rows(out)
 
 
@@ -303,7 +305,7 @@ def _comb_table_build(base, nw: int) -> list:
 
 
 def comb_table(base, nw: int, device=None) -> torch.Tensor:
-    device = torch.device(device or mc.DEVICE)
+    device = mc.current_device(device)
     key = (repr(base.normalize()), nw, str(device))
     hit = _COMB_TABLES.get(key)
     if hit is None:
@@ -314,6 +316,7 @@ def comb_table(base, nw: int, device=None) -> torch.Tensor:
 
 def batch_exp_comb(base, exponents) -> list:
     """[base ** e for e in exponents] (normalized) through K8."""
+    dev = mc.current_device()
     pk, nw = _digits(exponents)
-    out = comb_rows(comb_table(base, nw), torch.from_numpy(pk).to(mc.DEVICE))
+    out = comb_rows(comb_table(base, nw), torch.from_numpy(pk).to(dev))
     return cbn.decode_rows(out)

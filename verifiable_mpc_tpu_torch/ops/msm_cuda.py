@@ -2,22 +2,25 @@
 
 Counterpart of the Ed25519 path of the JAX package's ``ops/msm_pallas.py``:
 signed recoding (``_scalar_digits_signed``, ``_digits_signed_from_u64x4``),
-``msm`` / ``msm_async``, ``fold``, ``batch_exp_comb`` with its comb table,
-``ed_encode_cached`` and ``register``.  The device work is four kernels
-hand-written in CUDA (``csrc/*.cu``, one source each):
+``msm`` / ``msm_async``, ``fold``, ``batch_exp`` (the shared-base ladder),
+``batch_exp_comb`` with its comb table, ``ed_encode_cached`` and
+``register``.  The device work is five kernels hand-written in CUDA
+(``csrc/*.cu``, one source each):
 
 =====  =====================  ==========================================
 K1     msm_accumulate         4-bit signed-window accumulation (B1)
 K2     msm_tail               window reduction + Horner + normalize (B2)
 K3     fold                   g_l^c * g_r + normalize (B3)
 K4     comb                   fixed-base comb + normalize (B5)
+K15    bexp                   shared-base signed-window ladder (B4)
 =====  =====================  ==========================================
 
-Each wrapper (:func:`msm_rows`, :func:`fold_rows`, :func:`comb_rows`)
-launches its kernels for a CUDA tensor and counts the launch in
-:data:`LAUNCHES`; for a CPU tensor it runs the plain PyTorch version beside
-it (:func:`msm_plain`, :func:`fold_plain`, :func:`comb_plain`), which
-computes the same function with tensor ops.  A CUDA tensor never reaches
+Each wrapper (:func:`msm_rows`, :func:`fold_rows`, :func:`comb_rows`,
+:func:`bexp_rows`) launches its kernels for a CUDA tensor and counts the
+launch in :data:`LAUNCHES`; for a CPU tensor it runs the plain PyTorch
+version beside it (:func:`msm_plain`, :func:`fold_plain`,
+:func:`comb_plain`, :func:`bexp_plain`), which computes the same function
+with tensor ops.  A CUDA tensor never reaches
 a plain version, and a failed build or launch raises.
 
 Points travel as ``[n, 16]`` int64 rows (``ops/curve_ed.py``); every result
@@ -45,14 +48,29 @@ POINTS_PER_THREAD = 16  # K1: points one (window, slice) thread walks
 
 # kernel launches, counted by the wrappers where they launch (never by the
 # plain versions); the bn_* ones by ops/msm_bn_cuda.py, the bn2_* ones by
-# ops/msm_bn2_cuda.py
+# ops/msm_bn2_cuda.py, the bucket_* ones by ops/msm_bucket_cuda.py and
+# mont_add by ops/add_cuda.py
 LAUNCHES = {"msm_accumulate": 0, "msm_tail": 0, "fold": 0, "comb": 0,
             "bn_msm_accumulate": 0, "bn_msm_tail": 0, "bn_fold": 0,
             "bn_comb": 0, "bn2_msm_accumulate": 0, "bn2_msm_tail": 0,
-            "bn2_bexp": 0, "bn2_fold": 0}
+            "bn2_bexp": 0, "bn2_fold": 0, "bucket_accumulate": 0,
+            "bucket_reduce": 0, "bexp": 0, "mont_add": 0}
 
 DEVICE = None  # set by register()
 REGISTERED = False
+
+
+def current_device(dev=None) -> torch.device:
+    """``dev`` when given, else the device ``enable_gpu`` chose.  Before
+    ``enable_gpu()`` (or ``enable_gpu(device="cpu")``) there is none and
+    this raises: an entry point never runs on the CPU unasked."""
+    if dev is not None:
+        return torch.device(dev)
+    if DEVICE is None:
+        raise RuntimeError("no device chosen: call enable_gpu() first "
+                           "(enable_gpu(device='cpu') for the plain "
+                           "versions)")
+    return DEVICE
 
 
 def reset_launches():
@@ -341,6 +359,31 @@ def comb_rows(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def bexp_rows(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """base^e_i for a shared base: table [9, 16] precomputed-form rows (row
+    m = m * base), digits [nw/2, n] packed signed windows of the exponents
+    -> [n, 16] canonical rows.  CUDA: K15; CPU: :func:`bexp_plain`."""
+    _check_rows(table, "table", 2)
+    if table.shape[0] != TABLE_S:
+        raise ValueError(f"batch-exp table of {table.shape[0]} rows, not "
+                         f"{TABLE_S}")
+    _check_digits(digits, "digits", (digits.shape[0], digits.shape[-1]))
+    nw = 2 * digits.shape[0]
+    if not 0 < nw <= NWINDOWS or not digits.shape[1]:
+        raise ValueError(f"window count {nw} / {digits.shape[1]} exponents")
+    if _same_device(table, digits).type == "cpu":
+        return bexp_plain(table, digits)
+    from . import _cuda_build as cb
+
+    n = digits.shape[1]
+    out = torch.empty((n, 16), dtype=torch.int64, device=table.device)
+    cb.check(cb.lib().vmpc_cu_bexp_norm(table.data_ptr(), digits.data_ptr(),
+                                        n, nw, out.data_ptr(),
+                                        _stream(table)), "bexp")
+    LAUNCHES["bexp"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # plain versions (tensor ops; the CPU path and the kernels' yardstick)
 # ---------------------------------------------------------------------------
@@ -363,11 +406,12 @@ def _tree_sum(p, dim: int, law=ced):
     return tuple(a.select(dim, 0) for a in p)
 
 
-def _horner(sums, nw: int, law=ced):
-    """sum_w 16^(nw-1-w) S_w over window sums [..., nw] (MSB first)."""
+def _horner(sums, nw: int, law=ced, bits: int = WINDOW):
+    """sum_w 2^(bits (nw-1-w)) S_w over window sums [..., nw] (MSB
+    first)."""
     h = law.identity(sums[0].shape[:-2], sums[0].device)
     for w in range(nw):
-        for _ in range(WINDOW):
+        for _ in range(bits):
             h = law.dbl(h)
         h = law.add(h, tuple(c[..., w, :] for c in sums))
     return h
@@ -474,6 +518,28 @@ def comb_plain(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
     return torch.cat(out, dim=0)
 
 
+def bexp_plain(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """Plain version of K15: per exponent 4 doublings and a mixed add of
+    +-T[|d|] per window, normalize (in blocks of exponents)."""
+    tbl = ced.split_rows(table)  # 4 x [9, 16]
+    nw = 2 * digits.shape[0]
+    n = digits.shape[1]
+    d = unpack_digits(digits)  # [nw, n]
+    step = max(1, _PLAIN_BLOCK // nw)
+    out = []
+    for i0 in range(0, n, step):
+        db = d[:, i0 : i0 + step]
+        acc = ced.identity((db.shape[1],), table.device)
+        for w in range(nw):
+            for _ in range(WINDOW):
+                acc = ced.dbl(acc)
+            sel = ced.neg_where_pre(db[w] < 0,
+                                    tuple(c[db[w].abs()] for c in tbl))
+            acc = ced.add_pre(acc, sel)
+        out.append(ced.normalize_rows(acc))
+    return torch.cat(out, dim=0)
+
+
 # ---------------------------------------------------------------------------
 # point-level API (the dispatch backends)
 # ---------------------------------------------------------------------------
@@ -489,7 +555,7 @@ def ed_encode_cached(points, device=None):
     engine.  The value keeps the list alive, so the id key cannot alias."""
     from .. import native
 
-    device = torch.device(device or DEVICE)
+    device = current_device(device)
     key = (tuple(map(id, points)), str(device))
     hit = _ED_ENC_CACHE.get(key)
     if hit is not None:
@@ -508,14 +574,14 @@ def _device_points(points):
 
     if len(points) >= 4096 and native.fastser() is not None:
         return ed_encode_cached(points)[1]
-    return ced.encode_points(points, DEVICE)
+    return ced.encode_points(points, current_device())
 
 
 def _msm_launch(points, scalars):
     n = len(points)
     assert n == len(scalars)
     pk, _nw = packed_digits(scalars_to_u64x4(scalars, ELL), ELL)
-    digits = torch.from_numpy(pk).to(DEVICE)
+    digits = torch.from_numpy(pk).to(current_device())
     return msm_rows(_device_points(points)[None], digits[None])
 
 
@@ -535,8 +601,9 @@ def fold(g_l, g_r, c: int) -> list:
     """[g_l[i] ** c * g_r[i]] (normalized) through K3."""
     assert len(g_l) == len(g_r)
     cdig = scalar_digits([int(c)], ELL)[:, 0]
-    out = fold_rows(ced.encode_points(g_l, DEVICE),
-                    ced.encode_points(g_r, DEVICE), cdig)
+    dev = current_device()
+    out = fold_rows(ced.encode_points(g_l, dev), ced.encode_points(g_r, dev),
+                    cdig)
     return ced.decode_rows(out)
 
 
@@ -561,7 +628,7 @@ def _comb_table_build(base, nw: int) -> np.ndarray:
 
 
 def comb_table(base, nw: int, device=None) -> torch.Tensor:
-    device = torch.device(device or DEVICE)
+    device = current_device(device)
     key = (repr(base.normalize()), nw, str(device))
     hit = _COMB_TABLES.get(key)
     if hit is None:
@@ -575,9 +642,31 @@ def batch_exp_comb(base, exponents) -> list:
     """[base ** e for e in exponents] (normalized) through K4."""
     from .. import native
 
+    dev = current_device()
     arr = native._ints_to_u64x4([int(e) for e in exponents], ELL)
     pk, nw = packed_digits(arr, ELL)
-    out = comb_rows(comb_table(base, nw), torch.from_numpy(pk).to(DEVICE))
+    out = comb_rows(comb_table(base, nw), torch.from_numpy(pk).to(dev))
+    return ced.decode_rows(out)
+
+
+def bexp_table(base, device=None) -> torch.Tensor:
+    """[9, 16] precomputed-form rows of m * base for m = 0..8, built on the
+    host (7 group operations, as ``_batch_exp_generic`` builds its table)."""
+    pts = [EdwardsPoint.identity, base]
+    for _ in range(2, TABLE_S):
+        pts.append(pts[-1] * base)
+    return ced.from_reference_rows(ced.pre_rows(pts), current_device(device))
+
+
+def batch_exp(base, exponents) -> list:
+    """[base ** e for e in exponents] (normalized) through K15, the
+    counterpart of ``msm_pallas.batch_exp``: exponents reduced mod the
+    order and recoded into signed 4-bit windows.  Registered nowhere, as
+    in the JAX package (the comb, :func:`batch_exp_comb`, serves the
+    dispatch)."""
+    dev = current_device()
+    pk, _nw = packed_digits(scalars_to_u64x4(list(exponents), ELL), ELL)
+    out = bexp_rows(bexp_table(base), torch.from_numpy(pk).to(dev))
     return ced.decode_rows(out)
 
 
