@@ -36,8 +36,11 @@ Phases (each one fatal; any failure exits non-zero and prints no result):
    circuit, create_generators, circuit_sat_prover, circuit_sat_verifier;
    the kernel launch counts are zeroed just before and read just after,
    and every kernel of that path and the resident engine must have run;
-7. parity at 2^12 multiplications: the GPU prove and the enable_native()
-   prove under one seed give identical (normalized) proof bytes;
+7. parity at 2^12 multiplications: the generators made on the card (K4)
+   and by enable_native() under one seed are equal once normalized; the
+   GPU prove and the enable_native() prove under one seed give identical
+   (normalized) proof bytes, and the enable_native() prove launches no
+   kernel;
 7b. the flagship again with the bucket MSM registered
    (msm_bucket_cuda.register()): K13 + K14 serve the synchronous MSMs of
    4096 points and more (protocol 5's commitment A), launches counted per
@@ -53,8 +56,25 @@ Phases (each one fatal; any failure exits non-zero and prints no result):
    K8-K11 serve every call, the enable_gpu() and enable_native()
    evaluation keys (twist entries included) and proofs equal once
    normalized; the KoE pivot at 2^10 (K8 in its setup, K5 + K6 in its
-   prove);
-9. the ``kernels`` JSON line (sixteen kernels), then the result line
+   prove), then its parity: the enable_gpu() prove (BN and twist
+   thresholds lowered, K5 and K9 launched) and the enable_native() prove
+   under one seed give equal normalized bytes, the C++ tier's BN and twist
+   MSM results normalized by a wrapper here (the KoE commitment is hashed
+   as the backend returned it);
+9. the probe kernels P1-P4 (verifiable_mpc_tpu_torch/probes): the loop
+   bodies read in the SASS of the built library (the instructions a step,
+   the wide products a field product), each kernel held against its plain
+   version on the TPU probes' full tiles at 1, 7, 33 and 1,000 steps and
+   at every other shape the entry points time (the full-card lane counts,
+   P3's one lane) at 1, 7 and 33 steps (u32 and canonical field values
+   equal, f32 within F32_ULPS units in the last place below 1,000 steps;
+   at the full count two launches give the same bits; 33 steps run the
+   unrolled loop body twice), then both probes' entry points
+   (probe_vpu.main, probe_carrychain.main) with the launch counts zeroed
+   just before: every case timed at the TPU probes' shapes and counts and
+   at a lane count that fills the card (P3 also at one lane), each rate
+   beside the bound model's;
+10. the ``kernels`` JSON line (twenty kernels), then the result line
    ``{"ok": true, "device": {...}}``.
 
 Imports neither jax nor the JAX package.
@@ -89,13 +109,6 @@ CUTOVER_HALVES = tuple(1 << k for k in range(7, 15))
 BUCKET_SWEEP_LOG2 = (12, 14, 16, 17, 18)
 BUCKET_PARITY_MIN_BATCH = 512  # the bucket serves the 2^12 prove's MSMs
 MONT_ADD_SHAPE = 1 << 17
-
-# H100 SXM peaks used for the bounds (NVIDIA data sheet; the card may run
-# below them when its power limit is under 700 W)
-HBM_BYTES_PER_S = 3.35e12
-INT32_MULS_PER_SM_PER_CLK = 64  # IMAD throughput, compute capability 9.0
-BOOST_HZ = 1.98e9
-MULS_PER_FIELD_MUL = 128  # 64 32x32->64 products, lo and hi each
 
 # field multiplies (squarings included) of the group operations in
 # verifiable_mpc_tpu_torch/csrc/fe25519.cuh, for the bounds
@@ -153,6 +166,10 @@ SOURCES = {
     "bucket_reduce": "verifiable_mpc_tpu_torch/csrc/bucket_reduce.cu",
     "bexp": "verifiable_mpc_tpu_torch/csrc/bexp.cu",
     "mont_add": "verifiable_mpc_tpu_torch/csrc/ed_add_mont.cu",
+    "probe_vpu": "verifiable_mpc_tpu_torch/csrc/probe_vpu.cu",
+    "probe_field": "verifiable_mpc_tpu_torch/csrc/probe_vpu.cu",
+    "probe_chain": "verifiable_mpc_tpu_torch/csrc/probe_carrychain.cu",
+    "probe_raw": "verifiable_mpc_tpu_torch/csrc/probe_carrychain.cu",
 }
 
 _BN = " with the BN adapter verifiable_mpc_tpu/ops/bn_pallas.py:54,88"
@@ -176,10 +193,36 @@ REPLACES = {
     "bucket_reduce": "verifiable_mpc_tpu/ops/msm_bucket.py:265",
     "bexp": "verifiable_mpc_tpu/ops/msm_pallas.py:1129",
     "mont_add": "verifiable_mpc_tpu/ops/pallas_kernels.py:53",
+    "probe_vpu": "probes/probe_vpu.py:38",
+    "probe_field": "probes/probe_vpu.py:94",
+    "probe_chain": "probes/probe_carrychain.py:73",
+    "probe_raw": "probes/probe_carrychain.py:89",
 }
 ED_KERNELS = ("msm_accumulate", "msm_tail", "fold", "comb")
 BUCKET_KERNELS = ("bucket_accumulate", "bucket_reduce")
 ENTRY_KERNELS = ("bexp", "mont_add")  # entry points on no protocol path
+PROBE_KERNELS = ("probe_vpu", "probe_field", "probe_chain", "probe_raw")
+PROBE_CHECK_STEPS = (1, 7, 33, 1000)  # on the TPU probes' tiles
+PROBE_WIDE_STEPS = (1, 7, 33)  # on the full-card and one-lane shapes
+F32_ULPS = 4  # f32_fma against its plain version below 1,000 steps
+# SASS of the probe loops: the instructions a step of each P1 case (by
+# opcode, as the loop body holds VPU_UNROLL = 16 steps) and the least count
+# of 32 x 32 -> 64-bit products (IMAD.WIDE.U32) a field product needs:
+# 64 for a pseudo-Mersenne product, 64 + 56 for a word-by-word Montgomery
+# reduction (m * p[1..7] wide; m * p[0] may keep only its high half)
+VPU_UNROLL = 16
+SASS_STEP = {
+    "probe_vpu_kernelILi0E": {"IMAD": 1, "LOP3.LUT": 1, "LEA.HI": 1},
+    "probe_vpu_kernelILi1E": {"IMAD": 1},
+    "probe_vpu_kernelILi2E": {"IMAD.IADD": 1, "LOP3.LUT": 1},
+    "probe_vpu_kernelILi3E": {"FFMA": 1},
+    "probe_raw_kernel": {"IMAD": 1},
+}
+SASS_WIDE = {
+    "probe_field_kernelILi0E": 64, "probe_field_kernelILi1E": 120,
+    "probe_field_kernelILi2E": 120, "probe_chain_kernelILi1E": 64,
+    "probe_chain_kernelILi4E": 4 * 64,
+}
 
 
 def log(msg):
@@ -248,17 +291,20 @@ def max_abs_err(torch, a, b) -> float:
     return float(np.abs(d).max()) or 1.0
 
 
-def bound(torch, nbytes: float, field_muls: float,
-          per_mul: int = MULS_PER_FIELD_MUL):
+def bound(torch, nbytes: float, field_muls: float, per_mul: int = None):
     """(ms, "bytes" or "operations"): the larger of the time to move
     ``nbytes`` at the memory rate and the time for ``field_muls`` field
-    multiplies of ``per_mul`` 32-bit multiplies each at the 32-bit integer
-    multiply rate."""
+    multiplies of ``per_mul`` 32-bit multiplies each (a product mod
+    2^255 - 19 by default) at the 32-bit integer multiply rate, both from
+    the port's bound model."""
+    from verifiable_mpc_tpu_torch import bound_model as bm
+
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    by_bytes = nbytes / HBM_BYTES_PER_S
-    by_ops = field_muls * per_mul / (
-        sms * INT32_MULS_PER_SM_PER_CLK * BOOST_HZ)
-    return (max(by_bytes, by_ops) * 1e3,
+    by_bytes = nbytes / bm.HBM_BYTES_PER_S * 1e3
+    if per_mul is None:
+        per_mul = bm.MULS_PER_FIELD_MUL
+    by_ops = bm.ops_ms(sms, field_muls * per_mul)
+    return (max(by_bytes, by_ops),
             "operations" if by_ops >= by_bytes else "bytes")
 
 
@@ -632,7 +678,19 @@ def flagship(torch, vm, mc, built, bk=None):
     return launches
 
 
-def parity(torch, vm):
+def native_prove_launches_nothing(mc, prove):
+    """Run ``prove`` under enable_native() with the launch counts zeroed
+    just before, and assert that it launched no Ed25519 kernel: its
+    commitments are the C++ tier's, not K1 + K2's or K13 + K14's."""
+    mc.reset_launches()
+    out = prove()
+    ran = {k: mc.LAUNCHES[k] for k in ED_KERNELS + BUCKET_KERNELS
+           if mc.LAUNCHES[k]}
+    assert not ran, f"the enable_native() prove launched kernels: {ran}"
+    return out
+
+
+def parity(torch, vm, mc):
     import verifiable_mpc_tpu_torch.ac20.circuit_sat_cb as cs
     from verifiable_mpc_tpu_torch import rng, serialization
     from verifiable_mpc_tpu_torch.ac20 import pivot_gpu
@@ -640,11 +698,18 @@ def parity(torch, vm):
     vm.enable_gpu(DEV)
     group, gf, circuit, x, g_length = padded_circuit(vm, PARITY_LOG2_MULS)
     pc = cs.PivotChoice.compressed
+    mc.reset_launches()
     with rng.deterministic(2026):
         gens = cs.create_generators(g_length, pc, group)
+    assert mc.LAUNCHES["comb"] > 0, "K4 did not make the generators"
     vm.enable_native()
+    with rng.deterministic(2026):
+        gens_native = cs.create_generators(g_length, pc, group)
+    assert serialization.dumps(canonical(gens)) == serialization.dumps(
+        canonical(gens_native)), "K4's and the C++ tier's generators differ"
     with rng.deterministic(2027):
-        p_native = cs.circuit_sat_prover(gens, circuit, x, gf, pc)
+        p_native = native_prove_launches_nothing(
+            mc, lambda: cs.circuit_sat_prover(gens, circuit, x, gf, pc))
     vm.enable_gpu(DEV)
     runs0 = pivot_gpu.ENGINE_RUNS
     with rng.deterministic(2027):
@@ -654,8 +719,10 @@ def parity(torch, vm):
     b_gpu = serialization.dumps(canonical(p_gpu))
     assert b_native == b_gpu, "GPU and C++ proofs differ at 2^12"
     assert verified(cs.circuit_sat_verifier(p_gpu, gens, circuit, gf, pc))
-    log(f"   2^{PARITY_LOG2_MULS} muls: {len(b_gpu)} proof bytes identical "
-        "to the C++ tier's, verified")
+    log(f"   2^{PARITY_LOG2_MULS} muls: generators ({g_length}, made by K4)"
+        " equal the C++ tier's once normalized; the C++ tier's prove "
+        f"launched no kernel; {len(b_gpu)} proof bytes identical to the C++ "
+        "tier's, verified")
 
 
 # ---------------------------------------------------------------------------
@@ -921,7 +988,8 @@ def parity_bucket(torch, vm, mc, bk):
         gens = cs.create_generators(g_length, pc, group)
     vm.enable_native()
     with rng.deterministic(2031):
-        p_native = cs.circuit_sat_prover(gens, circuit, x, gf, pc)
+        p_native = native_prove_launches_nothing(
+            mc, lambda: cs.circuit_sat_prover(gens, circuit, x, gf, pc))
     vm.enable_gpu(DEV)
     bk.register(min_batch=BUCKET_PARITY_MIN_BATCH)
     mc.reset_launches()
@@ -1507,25 +1575,33 @@ def pinocchio_parity(torch, vm, mc):
         + ", ".join(path) + " launched)")
 
 
-def koe(torch, vm, mc):
-    """AC20 circuit satisfiability with the KoE pivot over BN256 at 2^10
-    multiplications with enable_gpu(), built as bench_ac20.py --pivot koe
-    builds it."""
+def koe_circuit(log2_muls: int):
+    """(group, gf, circuit, x, g_length) of the KoE pivot over BN256, built
+    as bench_ac20.py --pivot koe builds it."""
     import verifiable_mpc_tpu_torch.ac20.circuit_builder as cb
     import verifiable_mpc_tpu_torch.ac20.circuit_sat_cb as cs
     from verifiable_mpc_tpu_torch.fields import GF
     from verifiable_mpc_tpu_torch.groups import EllipticCurve
 
-    vm.enable_gpu(DEV)
     group = [EllipticCurve("BN256", "jacobian"),
              EllipticCurve("BN256_twist", "jacobian")]
     gf = GF(group[0].order)
-    circuit = chain_circuit(cb, gf, 1 << KOE_LOG2_MULS)
+    circuit = chain_circuit(cb, gf, 1 << log2_muls)
     x = circuit.initial_inputs()
     _check, padding, g_length = cs.check_input_length_power_of_2(x, circuit)
     for i in range(padding):
         cb.CircuitVar(gf(0), circuit, "unused_" + str(i))
-    x = circuit.initial_inputs()
+    return group, gf, circuit, circuit.initial_inputs(), g_length
+
+
+def koe(torch, vm, mc):
+    """AC20 circuit satisfiability with the KoE pivot over BN256 at 2^10
+    multiplications with enable_gpu(), built as bench_ac20.py --pivot koe
+    builds it."""
+    import verifiable_mpc_tpu_torch.ac20.circuit_sat_cb as cs
+
+    vm.enable_gpu(DEV)
+    group, gf, circuit, x, g_length = koe_circuit(KOE_LOG2_MULS)
     pc = cs.PivotChoice.koe
     mc.reset_launches()
     t0 = time.perf_counter()
@@ -1542,6 +1618,254 @@ def koe(torch, vm, mc):
         f"{t3 - t2:.3f} s; verification {ver}; launches {launches}")
     assert verified(ver), f"KoE proof did not verify: {ver}"
     assert launches["bn_comb"] > 0 and launches["bn_msm_accumulate"] > 0
+
+
+def koe_parity(torch, vm, mc):
+    """At 2^10 multiplications, under one seed: the KoE generators and
+    prove with enable_gpu() (BN and twist thresholds lowered to
+    MIN_MSM_BATCH, so K5 + K6 and K9 + K10 compute the KoE commitment) and
+    with enable_native() give equal normalized proof bytes.  The protocol
+    hashes the commitment {P, pi} as the backend returned it, and the
+    kernels return normalized points: a wrapper here normalizes the C++
+    tier's BN and twist MSM results in both runs."""
+    import verifiable_mpc_tpu_torch.ac20.circuit_sat_cb as cs
+    from verifiable_mpc_tpu_torch import native, rng, serialization
+
+    group, gf, circuit, x, g_length = koe_circuit(KOE_LOG2_MULS)
+    pc = cs.PivotChoice.koe
+    real = (native.bn_msm, native.bn2_msm)
+
+    def normalized(fn):
+        return lambda *args: fn(*args).normalize()
+
+    path = ("bn_msm_accumulate", "bn_msm_tail", "bn2_msm_accumulate",
+            "bn2_msm_tail")
+    out = {}
+    native.bn_msm, native.bn2_msm = (normalized(f) for f in real)
+    try:
+        for backend in ("gpu", "native"):
+            if backend == "gpu":
+                saved = (vm.BN_MIN_MSM_BATCH, vm.BN2_MIN_BATCH)
+                vm.BN_MIN_MSM_BATCH = vm.BN2_MIN_BATCH = vm.MIN_MSM_BATCH
+                try:
+                    vm.enable_gpu(DEV)
+                finally:
+                    vm.BN_MIN_MSM_BATCH, vm.BN2_MIN_BATCH = saved
+            else:
+                vm.enable_native()
+            mc.reset_launches()
+            with rng.deterministic(2032):
+                gens = cs.create_generators(g_length, pc, group)
+            with rng.deterministic(2033):
+                proof = cs.circuit_sat_prover(gens, circuit, x, gf, pc)
+            ran = [mc.LAUNCHES[k] > 0 for k in path]
+            assert ran == [backend == "gpu"] * len(path), (backend,
+                                                           mc.LAUNCHES)
+            ver = cs.circuit_sat_verifier(proof, gens, circuit, gf, pc)
+            assert verified(ver), f"KoE {backend} proof did not verify"
+            out[backend] = serialization.dumps(canonical(proof))
+    finally:
+        native.bn_msm, native.bn2_msm = real
+        vm.enable_gpu(DEV)
+    assert out["gpu"] == out["native"], "KoE proofs differ"
+    log(f"   KoE 2^{KOE_LOG2_MULS} muls: {len(out['gpu'])} proof bytes "
+        "identical to the C++ tier's, normalized (GPU run: "
+        + ", ".join(path) + " launched)")
+
+
+# ---------------------------------------------------------------------------
+# the probe kernels P1-P4
+# ---------------------------------------------------------------------------
+
+
+def sass_loops(path: str) -> dict:
+    """{kernel name: Counter of opcodes} of the largest loop body of every
+    probe kernel in the library's SASS (cuobjdump): the instructions from a
+    backward branch's target to the branch."""
+    import collections
+    import re
+
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = os.path.join(home, "bin", "cuobjdump")
+    sass = subprocess.run([tool if os.path.exists(tool) else "cuobjdump",
+                           "-sass", path], check=True, capture_output=True,
+                          text=True, timeout=300).stdout
+    loops = {}
+    for sec in re.split(r"\n\s*Function : ", "\n" + sass)[1:]:
+        name = sec.split("\n", 1)[0].strip()
+        if "probe_" not in name:
+            continue
+        ins = []
+        for line in sec.split("\n"):
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if m:
+                ins.append((int(m.group(1), 16), m.group(2)))
+        best = []
+        for addr, text in ins:
+            m = re.search(r"BRA\s+0x([0-9a-f]+)", text)
+            if m and int(m.group(1), 16) < addr:
+                lo = int(m.group(1), 16)
+                body = [t for a, t in ins if lo <= a <= addr]
+                best = max(best, body, key=len)
+        loops[name] = collections.Counter(
+            re.sub(r"^@!?U?P\w+\s+", "", t).split()[0] for t in best)
+    return loops
+
+
+def check_probe_sass(path: str):
+    """The timed loops hold the instructions they are named for: each P1
+    and P4 loop body VPU_UNROLL steps of exactly SASS_STEP's instructions,
+    each field product at least SASS_WIDE's wide products."""
+    loops = sass_loops(path)
+    for key, want in list(SASS_STEP.items()) + list(SASS_WIDE.items()):
+        (name,) = [n for n in loops if key in n]
+        ops = loops[name]
+        log(f"   SASS {key}: loop body of {sum(ops.values())} instructions "
+            + ", ".join(f"{k} {v}" for k, v in ops.most_common(8)))
+        if isinstance(want, dict):
+            got = {k: ops.get(k, 0) for k in want}
+            assert got == {k: VPU_UNROLL * v for k, v in want.items()}, (
+                key, dict(ops))
+            assert not any(k in ("IMAD", "FFMA", "LOP3.LUT", "LEA.HI",
+                                 "IMAD.IADD") and k not in want
+                           for k in ops), (key, dict(ops))
+        else:
+            assert ops.get("IMAD.WIDE.U32", 0) >= want, (key, dict(ops))
+
+
+def probe_checks(torch, pv, pc):
+    """Each probe kernel against its plain version at every shape the
+    probes' entry points time: on the TPU probes' tiles at PROBE_CHECK_STEPS
+    steps, on the full-card lane counts and P3's one lane at
+    PROBE_WIDE_STEPS.  Returns ({kernel: plain ms at the largest count on
+    the TPU tiles}, {kernel: max_abs_err})."""
+    dev = torch.device(DEV)
+    plain, err = {k: 0.0 for k in PROBE_KERNELS}, {k: 0.0 for k in
+                                                   PROBE_KERNELS}
+    top = max(PROBE_CHECK_STEPS)
+
+    def held(key, steps, got, want_fn, compare):
+        want, ms = cuda_once(torch, want_fn)
+        if steps == top:
+            plain[key] += ms
+        e = compare(got, want, steps)
+        err[key] = max(err[key], e)
+
+    def exact(got, want, _steps):
+        assert torch.equal(got, want), "probe kernel != plain version"
+        return 0.0
+
+    def f32(got, want, steps):
+        fin = torch.isfinite(want)
+        assert torch.equal(torch.isfinite(got), fin), "inf lanes differ"
+        if steps < top:
+            ulps = (got.view(torch.int32).to(torch.int64)
+                    - want.view(torch.int32).to(torch.int64)).abs()[fin]
+            assert int(ulps.max()) <= F32_ULPS, f"f32 {int(ulps.max())} ulp"
+        return float((got - want)[fin].abs().max()) if fin.any() else 0.0
+
+    for label, shape, fshape in pv.shapes(dev):
+        counts = PROBE_CHECK_STEPS if label == "tpu" else PROBE_WIDE_STEPS
+        xu, yu, xf, yf, xm, ym = pv.inputs(shape, fshape, dev=DEV)
+        for name in pv.CASES:
+            x, y = (xf, yf) if name == "f32_fma" else (xu, yu)
+            for steps in counts:
+                got = pv.vpu_op(name, x, y, steps)
+                held("probe_vpu", steps, got,
+                     lambda: pv.plain_vpu_op(name, x, y, steps),
+                     f32 if name == "f32_fma" else exact)
+        if label == "tpu":
+            # the full count: the kernel's inf and finite lanes and bits
+            # repeat
+            a = pv.vpu_op("f32_fma", xf, yf, pv.ITERS)
+            b = pv.vpu_op("f32_fma", xf, yf, pv.ITERS)
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+            log(f"   f32_fma at {pv.ITERS} steps: {int(torch.isinf(a).sum())}"
+                f" inf lanes of {a.numel()}, the same in two launches")
+        for name in pv.FIELD_CASES:
+            for steps in counts:
+                got = pv.canonical(name, pv.field_chain(name, xm, ym, steps))
+                held("probe_field", steps, got,
+                     lambda: pv.plain_field_chain(name, xm, ym, steps),
+                     exact)
+        log(f"   P1 {shape} and P2 {fshape} ({label}) equal their plain "
+            f"versions at {counts} steps")
+    rng = np.random.RandomState(7)
+    for label, per in pc.shapes(dev).items():
+        counts = PROBE_CHECK_STEPS if label == "tpu" else PROBE_WIDE_STEPS
+        for cname, k in pc.CHAINS.items():
+            ops = pc.operands(rng, k, (16,) + per[cname], DEV)
+            for steps in counts:
+                got = torch.stack([pv.canonical("mul25519", t)
+                                   for t in pc.chain(ops[:k], ops[k], steps)])
+                held("probe_chain", steps, got,
+                     lambda: torch.stack(pc.plain_chain(ops[:k], ops[k],
+                                                        steps)),
+                     exact)
+        if "raw" in per:
+            x, y = pc.operands(rng, 1, (16,) + per["raw"], DEV)
+            for steps in counts:
+                held("probe_raw", steps, pc.raw(x, y, steps),
+                     lambda: pc.plain_raw(x, y, steps), exact)
+        log(f"   P3/P4 ({label}: {per}) equal their plain versions at "
+            f"{counts} steps")
+    return plain, err
+
+
+def probe_bound_ms(torch, row) -> float:
+    """The least time of a probe row's work on the card, by operations in
+    the port's bound model: P1 by its busiest pipe (the model's steps per
+    SM per clock in the row), P2-P4 by their 32-bit multiplies at the IMAD
+    rate (as the kernel table's bounds).  Each lane reads and writes a few
+    words, so bytes never bound these."""
+    from verifiable_mpc_tpu_torch import bound_model as bm
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_step = {
+        "P1": lambda: bm.IMAD_PER_SM_CLK / row["model_per_sm_clk"],
+        "P2": lambda: row["muls"],
+        "P3": lambda: row["fmuls"] / row["iters"] * bm.MULS_PER_FIELD_MUL,
+        "P4": lambda: 16}[row["probe"]]()
+    return bm.ops_ms(sms, row["iters"] * row["lanes"] * per_step)
+
+
+def probes(torch):
+    """P1-P4: SASS, checks, then both probes' entry points with the launch
+    counts zeroed just before and read just after; returns the kernel
+    table's stats and the counts."""
+    from verifiable_mpc_tpu_torch import probes as prb
+    from verifiable_mpc_tpu_torch.ops import _cuda_build
+    from verifiable_mpc_tpu_torch.probes import probe_carrychain as pc
+    from verifiable_mpc_tpu_torch.probes import probe_vpu as pv
+
+    check_probe_sass(_cuda_build.LIB)
+    plain, err = probe_checks(torch, pv, pc)
+    log(f"   every probe kernel equals its plain version at every shape "
+        f"timed (f32 within {F32_ULPS} ulp below {max(PROBE_CHECK_STEPS)} "
+        "steps)")
+    prb.reset_launches()
+    rows = pv.main([]) + pc.main([])
+    launches = dict(prb.LAUNCHES)
+    assert all(launches.values()), f"a probe kernel never ran: {launches}"
+    log(f"   launches {launches}")
+    which = {"P1": "probe_vpu", "P2": "probe_field", "P3": "probe_chain",
+             "P4": "probe_raw"}
+    stats = {k: {"err": err[k], "ms": 0.0, "plain_ms": plain[k],
+                 "bound_ms": 0.0, "bound_by": "operations",
+                 "plain_iters": max(PROBE_CHECK_STEPS)}
+             for k in PROBE_KERNELS}
+    for r in rows:
+        if r["shape"] != "tpu":
+            continue
+        st = stats[which[r["probe"]]]
+        st["ms"] += r["ms"]
+        st["bound_ms"] += probe_bound_ms(torch, r)
+        st["iters"] = r["iters"]
+    for k, st in stats.items():
+        log(f"   {k} at the TPU probes' shapes and counts: {st['ms']:.3f} ms"
+            f" (bound {st['bound_ms']:.4f} ms by operations); plain "
+            f"{st['plain_ms']:.3f} ms at {st['plain_iters']} steps")
+    return stats, launches
 
 
 def main() -> int:
@@ -1613,7 +1937,7 @@ def main() -> int:
     with Phase(f"flagship 2^{FLAGSHIP_LOG2_MULS}"):
         launches = flagship(torch, vm, mc, built)
     with Phase(f"parity 2^{PARITY_LOG2_MULS}"):
-        parity(torch, vm)
+        parity(torch, vm, mc)
     with Phase(f"flagship 2^{FLAGSHIP_LOG2_MULS} with the bucket MSM"):
         bucket_launches = flagship(torch, vm, mc, built, bk)
     del built
@@ -1627,6 +1951,11 @@ def main() -> int:
         pinocchio_parity(torch, vm, mc)
     with Phase(f"KoE 2^{KOE_LOG2_MULS}"):
         koe(torch, vm, mc)
+        koe_parity(torch, vm, mc)
+    with Phase("probe kernels against their plain versions, then timed"):
+        probe_stats, probe_launches = probes(torch)
+    stats.update(probe_stats)
+    launches.update(probe_launches)
 
     for name in SOURCES:
         if name.startswith(BN_PATH):
@@ -1643,6 +1972,8 @@ def main() -> int:
             "max_abs_err": st["err"], "ms": st["ms"],
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"], "library_ms": None,
+            **({"iters": st["iters"], "plain_iters": st["plain_iters"]}
+               if name in PROBE_KERNELS else {}),
         }
         for name, st in stats.items()
     ]

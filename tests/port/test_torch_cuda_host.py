@@ -5,7 +5,9 @@ checked without a card.  The bucket MSM's bodies (K13's add with
 negation, K14's suffix-scan and tree steps and its 8-bit Horner ladder),
 K15's ladder and K16's Montgomery conversions are held against their
 plain versions (msm_bucket_cuda, msm_cuda.bexp_plain, add_cuda.add_plain)
-and against Python ints.  Compiles a C++ file, so it is marked slow."""
+and against Python ints, and so are the probe kernels' loop bodies
+(csrc/probe_ops.cuh, P1-P4) and the word-by-word Montgomery product mod
+2^255 - 19.  Compiles a C++ file, so it is marked slow."""
 
 import ctypes
 import pathlib
@@ -18,6 +20,7 @@ import numpy as np
 import pytest
 
 from verifiable_mpc_tpu_torch import native
+from verifiable_mpc_tpu_torch.groups.bn256 import P as BN_P
 from verifiable_mpc_tpu_torch.groups.edwards import ELL, EdwardsPoint
 
 pytestmark = pytest.mark.slow
@@ -249,3 +252,131 @@ def test_mont_add_body_matches_plain_and_ints(host_lib, n, k):
         assert all(v < P for v in k.lm.limbs_to_ints(c))
     assert k.lm.limbs_to_ints(mp[0]) == [pt.x * (1 << 256) % P
                                          for pt in pts_p]
+
+
+# ---------------------------------------------------------------------------
+# the probe kernels' loop bodies (csrc/probe_ops.cuh), P1-P4
+# ---------------------------------------------------------------------------
+
+PROBE_STEPS = [1, 7, 33]  # 33: two unrolled turns of 16 and one step
+P_BN = BN_P
+R256 = 1 << 256
+U32_STEP = {
+    0: lambda a, b: ((a * b) & 0xFFFFFFFF & 0xFFFF)
+    + (((a * b) & 0xFFFFFFFF) >> 16),
+    1: lambda a, b: (a * b + 1) & 0xFFFFFFFF,
+    2: lambda a, b: ((a + b) & 0xFFFFFFFF) ^ a,
+}
+
+
+def _words(vals):
+    """Python ints below 2^256 -> word-major [8, n] uint32."""
+    return np.ascontiguousarray(np.array(
+        [[(v >> (32 * k)) & 0xFFFFFFFF for v in vals] for k in range(8)],
+        np.uint32))
+
+
+def _words_ints(w):
+    return [sum(int(w[k, i]) << (32 * k) for k in range(8))
+            for i in range(w.shape[1])]
+
+
+def _field_inputs(n, seed):
+    rng = random.Random(seed)
+    edge = [0, 1, P, P + 1, 2 * P - 1, R256 - 1, P_BN, P_BN + 1]
+    return ((edge + [rng.randrange(R256) for _ in range(n)])[:n],
+            [rng.randrange(R256) for _ in range(n)])
+
+
+@pytest.mark.parametrize("steps", PROBE_STEPS)
+@pytest.mark.parametrize("op", [0, 1, 2],
+                         ids=["u32_mul_split", "u32_mul", "u32_add"])
+def test_probe_vpu_body_matches_python_ints(host_lib, op, steps):
+    rng = np.random.RandomState(op * 100 + steps)
+    x = rng.randint(0, 1 << 32, 40, dtype=np.int64).astype(np.uint32)
+    y = rng.randint(0, 1 << 32, 40, dtype=np.int64).astype(np.uint32)
+    out = np.zeros(40, np.uint32)
+    host_lib.host_probe_vpu(op, _p(x), _p(y), _p(out), 40, steps)
+    want = []
+    for a, b in zip(x.tolist(), y.tolist()):
+        for _ in range(steps):
+            a = U32_STEP[op](a, b)
+        want.append(a)
+    assert out.tolist() == want
+
+
+@pytest.mark.parametrize("steps", PROBE_STEPS)
+def test_probe_fma_body_matches_plain(host_lib, k, steps):
+    """f32_fma's body (one fused rounding a step) against the plain
+    version within 4 units in the last place."""
+    from verifiable_mpc_tpu_torch.probes import probe_vpu as pv
+
+    rng = np.random.RandomState(steps)
+    x = rng.rand(64).astype(np.float32)
+    y = rng.rand(64).astype(np.float32)
+    out = np.zeros(64, np.float32)
+    host_lib.host_probe_vpu(3, _p(x), _p(y), _p(out), 64, steps)
+    want = pv.plain_vpu_op("f32_fma", k.torch.from_numpy(x),
+                           k.torch.from_numpy(y), steps).numpy()
+    ulps = np.abs(out.view(np.int32).astype(np.int64)
+                  - want.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 4
+
+
+@pytest.mark.parametrize("steps", [1, 4])
+@pytest.mark.parametrize("op", [0, 1, 2],
+                         ids=["mul25519", "mont_mul", "fp_mul"])
+def test_probe_field_bodies_match_python_ints(host_lib, op, steps):
+    """P2's products on inputs at and above p: results below 2^256 and
+    congruent to x * (y s)^steps, s = 1 or R^-1."""
+    xs, ys = _field_inputs(24, op)
+    x, y = _words(xs), _words(ys)
+    out = np.zeros_like(x)
+    host_lib.host_probe_field(op, _p(x), _p(y), _p(out), 24, steps)
+    p = P_BN if op == 2 else P
+    s = 1 if op == 0 else pow(R256, -1, p)
+    got = _words_ints(out)
+    assert all(g < R256 for g in got)
+    assert [g % p for g in got] == [xv * pow(yv * s, steps, p) % p
+                                    for xv, yv in zip(xs, ys)]
+
+
+@pytest.mark.parametrize("chains", [1, 4])
+def test_probe_chain_bodies_match_python_ints(host_lib, chains):
+    n = 16
+    starts = [_field_inputs(n, 10 + c)[0] for c in range(chains)]
+    bs = _field_inputs(n, 20)[1]
+    a = np.ascontiguousarray(np.stack([_words(v) for v in starts]))
+    b = _words(bs)
+    out = np.zeros_like(a)
+    host_lib.host_probe_chain(chains, _p(a), _p(b), _p(out), n, 5)
+    for c in range(chains):
+        assert [g % P for g in _words_ints(out[c])] == [
+            xv * pow(yv, 5, P) % P for xv, yv in zip(starts[c], bs)]
+
+
+def test_probe_raw_body_matches_python_ints(host_lib):
+    rng = np.random.RandomState(3)
+    x = rng.randint(0, 1 << 16, 32).astype(np.uint32)
+    y = rng.randint(0, 1 << 16, 32).astype(np.uint32)
+    out = np.zeros(32, np.uint32)
+    host_lib.host_probe_raw(_p(x), _p(y), _p(out), 32, 70)
+    want = []
+    for a, b in zip(x.tolist(), y.tolist()):
+        for _ in range(70):
+            a = (a * b + 1) & 0xFFFFFFFF
+        want.append(a)
+    assert out.tolist() == want
+
+
+def test_mont25519_mul_edges(host_lib):
+    """The word-by-word Montgomery product on edge values: a * b * 2^-256
+    mod p, below 2^256 (not always below p)."""
+    r_inv = pow(R256, -1, P)
+    for a in FE_EDGE:
+        for b in FE_EDGE:
+            r = np.zeros(4, np.uint64)
+            fa, fb = _fe(a), _fe(b)  # kept alive across the call
+            host_lib.host_mont25519_mul(_p(fa), _p(fb), _p(r))
+            v = _fe_int(r)
+            assert v < R256 and v % P == a * b * r_inv % P, (a, b)

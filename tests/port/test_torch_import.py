@@ -45,6 +45,8 @@ def test_import_and_enable_native_load_no_jax_or_reference(native_built):
         "from verifiable_mpc_tpu_torch.ops import msm_bn2_cuda\n"
         "from verifiable_mpc_tpu_torch.ops import (\n"
         "    add_cuda, limbs_mont, msm_bucket_cuda)\n"
+        "from verifiable_mpc_tpu_torch.probes import (\n"
+        "    probe_carrychain, probe_vpu)\n"
         "from verifiable_mpc_tpu_torch.tools import code_to_qap\n"
         "from verifiable_mpc_tpu_torch.trinocchio import (\n"
         "    pynocchio, qap_fast, trinocchio)\n"

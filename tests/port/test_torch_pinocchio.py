@@ -23,8 +23,12 @@ from verifiable_mpc_tpu.groups import EllipticCurve as RefCurve
 from verifiable_mpc_tpu.ops import dispatch as ref_dispatch
 from verifiable_mpc_tpu.tools import poly as ref_poly
 
+import verifiable_mpc_tpu.ac20.circuit_builder as ref_cb
+import verifiable_mpc_tpu.ac20.circuit_sat_cb as ref_cs
 import verifiable_mpc_tpu.tools.code_to_qap as ref_c2q
 import verifiable_mpc_tpu_torch as port
+import verifiable_mpc_tpu_torch.ac20.circuit_builder as cb
+import verifiable_mpc_tpu_torch.ac20.circuit_sat_cb as cs
 import verifiable_mpc_tpu_torch.tools.code_to_qap as c2q
 import verifiable_mpc_tpu_torch.trinocchio.pynocchio as pyn
 import verifiable_mpc_tpu_torch.trinocchio.qap_fast as qf
@@ -36,6 +40,10 @@ from test_torch_bn_field import load_reference_native
 
 LOG2_MULS = 3
 SEED = 20261017
+# the KoE pivot's chain: 2 multiplications give a vector of 15, the fewest
+# that reach the lowered thresholds (8), so the plain K5 + K6 and K9 + K10
+# compute the KoE commitment (a single one gives 7)
+KOE_MULS = 2
 
 
 def chain_code(n_muls: int) -> str:
@@ -113,6 +121,68 @@ def reference_run():
             table.update(old)
         ref_native.SCALAR_TIER, ref_native.REGISTERED = saved[1:3]
         ref_poly._NTT_MUL_BACKEND[:] = saved[3]
+
+
+def _koe_prove(cb_mod, cs_mod, gf_cls, curve, rng_mod):
+    """(generators, circuit, gf, proof) of AC20 circuit satisfiability with
+    the KoE pivot over BN256, a chain of KOE_MULS multiplications padded as
+    bench_ac20.py --pivot koe pads it."""
+    group = [curve("BN256", "jacobian"), curve("BN256_twist", "jacobian")]
+    gf = gf_cls(group[0].order)
+    circuit = cb_mod.Circuit()
+    x = cb_mod.CircuitVar(gf(3), circuit, "x")
+    acc = x
+    for _ in range(KOE_MULS - 1):
+        acc = acc * acc + 1
+    (acc * x).label_output("out")
+    inputs = circuit.initial_inputs()
+    _ok, padding, g_length = cs_mod.check_input_length_power_of_2(inputs,
+                                                                  circuit)
+    for i in range(padding):
+        cb_mod.CircuitVar(gf(0), circuit, "unused_" + str(i))
+    pc = cs_mod.PivotChoice.koe
+    with rng_mod.deterministic(SEED + 3):
+        gens = cs_mod.create_generators(g_length, pc, group)
+    with rng_mod.deterministic(SEED + 4):
+        proof = cs_mod.circuit_sat_prover(gens, circuit,
+                                          circuit.initial_inputs(), gf, pc)
+    return gens, circuit, gf, proof
+
+
+@pytest.fixture(scope="module")
+def reference_koe(monkeypatch_module):
+    """The JAX package's enable_native() KoE prove, normalized bytes.  The
+    protocol hashes the KoE commitment {P, pi} as the backend returned it
+    (circuit_sat_cb.py:91-97), and the port's kernels return normalized
+    points: the C++ tier's BN and twist MSM results are normalized here,
+    in this process only, before enable_native() installs them."""
+    for name in ("bn_msm", "bn2_msm"):
+        fn = getattr(ref_native, name)
+        monkeypatch_module.setattr(
+            ref_native, name, lambda *a, _fn=fn: _fn(*a).normalize())
+    tables = (ref_dispatch._MSM_BACKENDS, ref_dispatch._FOLD_BACKENDS,
+              ref_dispatch._BATCH_EXP_BACKENDS,
+              ref_dispatch._MSM_ASYNC_BACKENDS)
+    saved = ([dict(t) for t in tables], ref_native.SCALAR_TIER,
+             ref_native.REGISTERED, list(ref_poly._NTT_MUL_BACKEND))
+    try:
+        assert load_reference_native() is not None and ref.enable_native()
+        _gens, _circuit, _gf, proof = _koe_prove(ref_cb, ref_cs, RefGF,
+                                                 RefCurve, ref_rng)
+        return ref_ser.dumps(_canonical(proof))
+    finally:
+        for table, old in zip(tables, saved[0]):
+            table.clear()
+            table.update(old)
+        ref_native.SCALAR_TIER, ref_native.REGISTERED = saved[1:3]
+        ref_poly._NTT_MUL_BACKEND[:] = saved[3]
+
+
+@pytest.fixture(scope="module")
+def monkeypatch_module():
+    mp = pytest.MonkeyPatch()
+    yield mp
+    mp.undo()
 
 
 @pytest.fixture(scope="module")
@@ -229,3 +299,20 @@ def test_proof_verifies(port_keys, port_proof):
     ver = pyn.verify(k.qap, k.verikey, port_proof.proof,
                      port_proof.c[: k.qap.out_ix + 1])
     assert all(ver.values()), ver
+
+
+def test_koe_matches_reference_normalized_bytes(reference_koe, port_backend):
+    """The KoE pivot through the plain kernels: K8 and K11 make the
+    generators, K5 + K6 and K9 + K10 the commitment and the opening; the
+    normalized proof bytes equal the reference's (its BN and twist MSM
+    results normalized, see reference_koe) and the proof verifies."""
+    before = dict(port_backend.served)
+    gens, circuit, gf, proof = _koe_prove(cb, cs, GF, EllipticCurve, rng)
+    served = {k: v - before[k] for k, v in port_backend.served.items()}
+    assert served["msm"] >= 2 and served["twist_msm"] >= 1, served
+    assert served["batch_exp"] >= 1 and served["twist_batch_exp"] >= 1
+    assert serialization.dumps(_canonical(proof)) == reference_koe
+    ver = cs.circuit_sat_verifier(proof, gens, circuit, gf,
+                                  cs.PivotChoice.koe)
+    assert all(all(v.values()) if isinstance(v, dict) else bool(v)
+               for v in ver.values())

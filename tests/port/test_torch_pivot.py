@@ -128,16 +128,67 @@ def gpu_engine_on_cpu(monkeypatch, pivot_gpu):
     port.enable_native()
 
 
-def test_prove_matches_reference_native_bytes(reference_proof,
-                                              gpu_engine_on_cpu, pivot_gpu):
+def test_prove_matches_reference_native_bytes(reference_proof, monkeypatch,
+                                              pivot_gpu):
+    """The plain comb (K4) makes the generators (every batch of 8 or more
+    on the plain kernels): they equal the reference's once normalized (the
+    comb returns normalized points, the C++ tier projective ones).  The
+    protocol hashes the generators as given, so the prove takes the
+    reference's, loaded through the serialization (docs/TRANSCRIPTS.md),
+    and its normalized proof bytes equal the reference's."""
+    from verifiable_mpc_tpu_torch.ops import msm_cuda
+
     gens_bytes, _raw, ref_bytes = reference_proof
-    gf, circuit, x, gens = _setup(cb, cs, GF, EllipticCurve, rng)
-    assert serialization.dumps(gens) == gens_bytes
-    runs0 = pivot_gpu.ENGINE_RUNS
-    with rng.deterministic(SEED + 1):
-        proof = cs.circuit_sat_prover(gens, circuit, x, gf, PC)
-    assert pivot_gpu.ENGINE_RUNS > runs0, "the engine declined the prove"
-    assert serialization.dumps(_canonical(proof)) == ref_bytes
+    combs = []
+    comb_rows = msm_cuda.comb_rows
+    monkeypatch.setattr(msm_cuda, "comb_rows",
+                        lambda *a: combs.append(1) or comb_rows(*a))
+    port.enable_gpu(device="cpu", min_msm_batch=8)
+    try:
+        monkeypatch.setattr(pivot_gpu, "_CUTOVER", 8)
+        gf, circuit, x, gens = _setup(cb, cs, GF, EllipticCurve, rng)
+        assert combs, "the plain comb did not make the generators"
+        ref_gens = serialization.loads(gens_bytes)
+        assert serialization.dumps(_canonical(gens)) == serialization.dumps(
+            _canonical(ref_gens))
+        runs0 = pivot_gpu.ENGINE_RUNS
+        with rng.deterministic(SEED + 1):
+            proof = cs.circuit_sat_prover(ref_gens, circuit, x, gf, PC)
+        assert pivot_gpu.ENGINE_RUNS > runs0, "the engine declined the prove"
+        assert serialization.dumps(_canonical(proof)) == ref_bytes
+    finally:
+        port.enable_native()
+
+
+def test_enable_native_removes_the_gpu_async_msm(pivot_gpu, monkeypatch):
+    """enable_gpu() installs K1 + K2 as the Ed25519 MSM-async backend (a
+    600-point multiexp_async reaches msm_cuda); enable_native() removes
+    it, so the same call is the C++ tier's."""
+    import random
+
+    from verifiable_mpc_tpu_torch import native
+    from verifiable_mpc_tpu_torch.groups.edwards import ELL
+    from verifiable_mpc_tpu_torch.ops import dispatch, msm_cuda
+
+    calls = []
+    launch = msm_cuda._msm_launch
+    monkeypatch.setattr(msm_cuda, "_msm_launch",
+                        lambda p, e: calls.append(len(p)) or launch(p, e))
+    rnd = random.Random(SEED)
+    pts = native.ed_batch_exp(EdwardsPoint.generator,
+                              [rnd.randrange(1, ELL) for _ in range(600)])
+    exps = [rnd.randrange(ELL) for _ in range(600)]
+    port.enable_gpu(device="cpu")
+    try:
+        want = dispatch.multiexp_async(pts, exps)()
+        assert calls == [600]
+        port.enable_native()
+        assert EdwardsPoint not in dispatch._MSM_ASYNC_BACKENDS
+        got = dispatch.multiexp_async(pts, exps)()
+        assert calls == [600], "enable_native() left the GPU async MSM"
+        assert got.normalize() == want.normalize()
+    finally:
+        port.enable_native()
 
 
 @pytest.mark.parametrize("tamper", [False, True], ids=["as-is", "tampered"])

@@ -120,12 +120,16 @@ def enable_native(min_batch: int = 8, min_poly_len: int = 128):
         from .ops import ntt
 
         ntt.register(min_poly_len)
-        # the C++ tier replaces the GPU backends: the resident engine, the
-        # device encode cache and the BN and twist folds (the C++ tier has
-        # none) step aside too
+        # the C++ tier replaces the GPU backends: native.register() takes
+        # the synchronous tables; the Ed25519 MSM-async backend that
+        # msm_cuda.register() installed (K1 + K2) is removed here, and the
+        # resident engine, the device encode cache and the BN and twist
+        # folds (the C++ tier has none) step aside too
         from .groups.bn256 import BNPoint, BNTwistPoint
+        from .groups.edwards import EdwardsPoint
         from .ops import dispatch
 
+        dispatch._MSM_ASYNC_BACKENDS.pop(EdwardsPoint, None)
         dispatch._FOLD_BACKENDS.pop(BNPoint, None)
         dispatch._FOLD_BACKENDS.pop(BNTwistPoint, None)
         engine = sys.modules.get(__name__ + ".ac20.pivot_gpu")

@@ -4,7 +4,8 @@
 // bn254_kernels.cuh and fp2_254.cuh / bn2_kernels.cuh can be checked
 // against the plain PyTorch versions without a GPU
 // (tests/port/test_torch_cuda_host.py, tests/port/test_torch_bn_host.py,
-// tests/port/test_torch_bn2_host.py).  A kernel whose threads meet in
+// tests/port/test_torch_bn2_host.py), and the loop bodies of the probe
+// kernels P1-P4 (probe_ops.cuh) against Python ints.  A kernel whose threads meet in
 // shared memory (K14's scan and tree) runs its steps here one thread after
 // the other, each step's threads reading what the step before wrote.
 //
@@ -16,6 +17,7 @@
 #include "bn254_kernels.cuh"
 #include "bn2_kernels.cuh"
 #include "ed25519_kernels.cuh"
+#include "probe_ops.cuh"
 
 extern "C" {
 
@@ -322,6 +324,66 @@ void host_fp2_inv(const uint64_t *a, uint64_t *r) {
   fp2_load(x, a);
   fp2_inv(z, x);
   fp2_store(r, z);
+}
+
+// P1: n lanes of `iters` steps of op (u32 for ops 0-2, f32 for op 3)
+void host_probe_vpu(int op, const void *x, const void *y, void *out, int n,
+                    int iters) {
+  const uint32_t *xu = (const uint32_t *)x, *yu = (const uint32_t *)y;
+  uint32_t *ou = (uint32_t *)out;
+  const float *xf = (const float *)x, *yf = (const float *)y;
+  float *of = (float *)out;
+  for (int i = 0; i < n; i++) {
+    switch (op) {
+      case VPU_U32_MUL_SPLIT: ou[i] = vpu_steps<VPU_U32_MUL_SPLIT>(xu[i], yu[i], iters); break;
+      case VPU_U32_MUL: ou[i] = vpu_steps<VPU_U32_MUL>(xu[i], yu[i], iters); break;
+      case VPU_U32_ADD: ou[i] = vpu_steps<VPU_U32_ADD>(xu[i], yu[i], iters); break;
+      default: of[i] = vpu_steps<VPU_F32_FMA>(xf[i], yf[i], iters); break;
+    }
+  }
+}
+
+// P2: word-major [8][n] operands, `iters` steps of product op
+void host_probe_field(int op, const uint32_t *x, const uint32_t *y,
+                      uint32_t *out, int n, int iters) {
+  Mont25519 k = mont25519_consts();
+  for (int i = 0; i < n; i++) {
+    fe a, b;
+    fe_load_words(a, x, n, i);
+    fe_load_words(b, y, n, i);
+    if (op == FIELD_MUL25519) field_steps<FIELD_MUL25519>(a, b, k, iters);
+    else if (op == FIELD_MONT25519) field_steps<FIELD_MONT25519>(a, b, k, iters);
+    else field_steps<FIELD_FP254>(a, b, k, iters);
+    fe_store_words(out, a, n, i);
+  }
+}
+
+// P3: a, out [chains][8][n]; b [8][n]; chains 1 or 4
+void host_probe_chain(int chains, const uint32_t *a, const uint32_t *b,
+                      uint32_t *out, int n, int iters) {
+  for (int i = 0; i < n; i++) {
+    fe x[4], y;
+    for (int c = 0; c < chains; c++) fe_load_words(x[c], a + (size_t)c * 8 * n, n, i);
+    fe_load_words(y, b, n, i);
+    if (chains == 4) chain_steps<4>(x, y, iters);
+    else chain_steps<1>(x, y, iters);
+    for (int c = 0; c < chains; c++) fe_store_words(out + (size_t)c * 8 * n, x[c], n, i);
+  }
+}
+
+// P4: n elements of `steps` steps of x * y + 1
+void host_probe_raw(const uint32_t *x, const uint32_t *y, uint32_t *out, int n,
+                    int steps) {
+  for (int i = 0; i < n; i++) out[i] = vpu_steps<VPU_U32_MUL>(x[i], y[i], steps);
+}
+
+// the p25519 Montgomery product on four u64 limbs
+void host_mont25519_mul(const uint64_t *a, const uint64_t *b, uint64_t *r) {
+  fe x, y, z;
+  fe_load(x, a);
+  fe_load(y, b);
+  mont25519_mul(z, x, y, mont25519_consts());
+  fe_store(r, z);
 }
 
 }  // extern "C"

@@ -23,10 +23,10 @@ SOURCES = ("msm_accum.cu", "msm_tail.cu", "fold.cu", "comb.cu",
            "bn_msm_accum.cu", "bn_msm_tail.cu", "bn_fold.cu", "bn_comb.cu",
            "bn2_msm_accum.cu", "bn2_msm_tail.cu", "bn2_bexp.cu",
            "bn2_fold.cu", "bucket_accum.cu", "bucket_reduce.cu", "bexp.cu",
-           "ed_add_mont.cu")
+           "ed_add_mont.cu", "probe_vpu.cu", "probe_carrychain.cu")
 HEADERS = ("fe25519.cuh", "ed25519_kernels.cuh", "fp254.cuh",
            "bn254_kernels.cuh", "fp2_254.cuh", "bn2_kernels.cuh",
-           "digits.cuh", "launch.cuh")
+           "digits.cuh", "launch.cuh", "probe_ops.cuh")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -83,6 +83,12 @@ def lib():
         so.vmpc_cu_bucket_reduce.argtypes = [vp, vp, vp, ci, ci, vp]
         so.vmpc_cu_bexp_norm.argtypes = [vp, vp, ci, ci, vp, vp]
         so.vmpc_cu_mont_add.argtypes = [vp] * 12 + [ci, vp]
+        so.vmpc_cu_probe_vpu.argtypes = [ci, vp, vp, vp, ci, ci, vp]
+        so.vmpc_cu_probe_field.argtypes = [ci, vp, vp, vp, ci, ci, vp]
+        so.vmpc_cu_probe_chain.argtypes = [ci, vp, vp, vp, ci, ci, vp]
+        so.vmpc_cu_probe_raw.argtypes = [vp, vp, vp, ci, ci, vp]
+        so.vmpc_cu_probe_vpu_resident.argtypes = [ci]
+        so.vmpc_cu_probe_carrychain_resident.argtypes = [ci]
         for fn in (so.vmpc_cu_msm_accum, so.vmpc_cu_msm_tail,
                    so.vmpc_cu_fold_norm, so.vmpc_cu_comb_norm,
                    so.vmpc_cu_bn_msm_accum, so.vmpc_cu_bn_msm_tail,
@@ -90,7 +96,11 @@ def lib():
                    so.vmpc_cu_bn2_msm_accum, so.vmpc_cu_bn2_msm_tail,
                    so.vmpc_cu_bn2_bexp, so.vmpc_cu_bn2_fold_norm,
                    so.vmpc_cu_bucket_accum, so.vmpc_cu_bucket_reduce,
-                   so.vmpc_cu_bexp_norm, so.vmpc_cu_mont_add):
+                   so.vmpc_cu_bexp_norm, so.vmpc_cu_mont_add,
+                   so.vmpc_cu_probe_vpu, so.vmpc_cu_probe_field,
+                   so.vmpc_cu_probe_chain, so.vmpc_cu_probe_raw,
+                   so.vmpc_cu_probe_vpu_resident,
+                   so.vmpc_cu_probe_carrychain_resident):
             fn.restype = ci
         _lib = so
     return _lib

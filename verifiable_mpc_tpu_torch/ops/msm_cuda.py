@@ -673,7 +673,8 @@ def batch_exp(base, exponents) -> list:
 def register(device, min_batch: int = 512):
     """Run the kernels on ``device`` and install K1 + K2 as the Ed25519
     MSM-async backend.  ``enable_gpu`` installs :func:`msm`, :func:`fold`
-    and :func:`batch_exp_comb` itself, tiered with the C++ host tier."""
+    and :func:`batch_exp_comb` itself, tiered with the C++ host tier;
+    ``enable_native`` removes the async backend again."""
     global DEVICE, REGISTERED
     DEVICE = torch.device(device)
     REGISTERED = True
