@@ -8,8 +8,9 @@ Run from the repository root on a machine with one CUDA card:
 Phases (each one fatal; any failure exits non-zero and prints no result):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the kernels (nvcc, ptxas's registers per thread of every kernel)
-   and the C++ host tier (g++), with their seconds;
+2. build the kernels (nvcc, ptxas's registers per thread of every kernel,
+   and one line with the registers, stack and spills of K1's and K5's two
+   launches each) and the C++ host tier (g++), with their seconds;
 3. hold every kernel against its plain PyTorch version on the same inputs
    on the card: K1 + K2 (MSM), K3 (fold), K4 (comb) over Ed25519 and
    K5 + K6 (MSM), K7 (fold), K8 (comb) over BN256 G1 at n in {1, 300,
@@ -74,7 +75,10 @@ Phases (each one fatal; any failure exits non-zero and prints no result):
    just before: every case timed at the TPU probes' shapes and counts and
    at a lane count that fills the card (P3 also at one lane), each rate
    beside the bound model's;
-10. the ``kernels`` JSON line (twenty kernels), then the result line
+10. each kernel's bound again by the field products its work needs at the
+   product rate P2 measured in phase 9 at full occupancy
+   (``bound_product_ms``, beside the multiply model's ``bound_ms``);
+11. the ``kernels`` JSON line (twenty kernels), then the result line
    ``{"ok": true, "device": {...}}``.
 
 Imports neither jax nor the JAX package.
@@ -82,6 +86,8 @@ Imports neither jax nor the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -308,6 +314,69 @@ def bound(torch, nbytes: float, field_muls: float, per_mul: int = None):
             "operations" if by_ops >= by_bytes else "bytes")
 
 
+def log_stat(name: str, st: dict, unit: str):
+    log(f"   {name} [{st['shape']}]: {st['ms']:.3f} ms, plain "
+        f"{st['plain_ms']:.1f} ms, bound {st['bound_ms']:.4f} ms "
+        f"({st['bound_by']}), {unit} {st['muls']}, max_abs_err {st['err']}")
+
+
+def product_bounds(stats: dict, rates: dict):
+    """Each kernel's bound by the field products its work needs
+    (``products``, in products of its curve's field) at the product rate
+    the probe phase measured at full occupancy (``rates``: per second,
+    "ed" for ``fe_mul``, "bn" for ``fp_mul``), or by its bytes if larger:
+    ``bound_product_ms``, beside the multiply model's ``bound_ms``."""
+    from verifiable_mpc_tpu_torch import bound_model as bm
+
+    for name, st in stats.items():
+        if "products" not in st:
+            continue
+        rate = rates["bn" if name.startswith(BN_PATH) else "ed"]
+        st["bound_product_ms"] = max(st["bytes"] / bm.HBM_BYTES_PER_S * 1e3,
+                                     bm.products_ms(st["products"], rate))
+        log(f"   {name}: {st['ms']:.3f} ms, {st['ms'] / st['bound_ms']:.1f} x"
+            f" the multiply model's bound {st['bound_ms']:.4f} ms, "
+            f"{st['ms'] / st['bound_product_ms']:.1f} x the measured product"
+            f" rate's {st['bound_product_ms']:.4f} ms")
+
+
+def ptxas_usage(text: str) -> dict:
+    """{kernel: (registers, stack bytes, spill store bytes, spill load
+    bytes)} from ptxas's -v output."""
+    import re
+
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            out[name] = [int(g) for g in m.groups()]
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in out and len(out[name]) == 3:
+            out[name].insert(0, int(m.group(1)))
+    return {k: tuple(v) for k, v in out.items() if len(v) == 4}
+
+
+def log_accum_usage(usage: dict):
+    """The ptxas line of K1's and K5's two launches each."""
+    parts = []
+    for key in ("msm_table_kernel", "msm_accum_kernel", "bn_table_kernel",
+                "bn_msm_accum_kernel"):
+        hit = [v for k, v in usage.items() if f"{len(key)}{key}" in k]
+        if hit:
+            r, st, ss, sl = hit[0]
+            parts.append(f"{key} {r} registers, {st} bytes stack, {ss}/{sl} "
+                         "bytes spill stores/loads")
+        else:
+            parts.append(f"{key} not in the build output (library current)")
+    log("   ptxas K1 and K5: " + "; ".join(parts))
+
+
 def chain_circuit(cb, gf, n_muls: int):
     """x_{i+1} = x_i * x_i + 1: n_muls multiplication gates (the chain of
     bench_ac20.py)."""
@@ -422,8 +491,9 @@ def msm_accumulate_muls(d) -> int:
     """Field multiplies that the window accumulation needs for signed
     digits d [B, nw, n]: each point's table 1..max|d| in precomputed form
     (built once, shared by its windows), then one mixed add per nonzero
-    digit.  This is the bound's work, not what K1 does: K1 rebuilds a
-    point's multiples in every window."""
+    digit.  K1 does this work, but for building every point's table up to
+    8 (seven mixed adds and eight conversions a point, whatever its
+    digits)."""
     top = d.abs().amax(dim=1)  # [B, n]
     table = (top > 0) * (TO_PRE + (top - 1).clamp(min=0) * (ADD_PRE + TO_PRE))
     return int(table.sum()) + ADD_PRE * int((d != 0).sum())
@@ -447,7 +517,7 @@ def check_main_shapes(torch, native, mc, ced, rng, g_half: int, n_comb: int):
     pk, nw = mc.packed_digits(z)
     d2 = torch.from_numpy(np.stack([pk[:, :g_half], pk[:, g_half:]])).to(dev)
     pts = torch.stack([g[g_half:], g[:g_half]])
-    S = mc.slices_for(g_half)
+    S = mc.slices_for(g_half, mc.ACCUM_POINTS_PER_THREAD)
     acc = mc.msm_accumulate(pts, d2, S)
     acc_plain = mc.msm_accumulate_plain(pts, d2, S)
     norm = lambda a: ced.normalize_rows(ced.split_rows(a))  # noqa: E731
@@ -525,10 +595,8 @@ def check_main_shapes(torch, native, mc, ced, rng, g_half: int, n_comb: int):
     )
     for name, st in stats.items():
         st["bound_ms"], st["bound_by"] = bound(torch, st["bytes"], st["muls"])
-        log(f"   {name} [{st['shape']}]: {st['ms']:.3f} ms, plain "
-            f"{st['plain_ms']:.1f} ms, bound {st['bound_ms']:.4f} ms "
-            f"({st['bound_by']}), field muls {st['muls']}, "
-            f"max_abs_err {st['err']}")
+        st["products"] = st["muls"]
+        log_stat(name, st, "field muls")
     return stats
 
 
@@ -898,10 +966,8 @@ def check_main_shapes_new(torch, native, mc, bk, ced, add, lm, rng,
         muls=n_add * ADD)
     for name, st in stats.items():
         st["bound_ms"], st["bound_by"] = bound(torch, st["bytes"], st["muls"])
-        log(f"   {name} [{st['shape']}]: {st['ms']:.3f} ms, plain "
-            f"{st['plain_ms']:.1f} ms, bound {st['bound_ms']:.4f} ms "
-            f"({st['bound_by']}), field muls {st['muls']}, "
-            f"max_abs_err {st['err']}")
+        st["products"] = st["muls"]
+        log_stat(name, st, "field muls")
     return stats
 
 
@@ -1127,7 +1193,7 @@ def check_main_shapes_bn(torch, native, mc, mb, cbn, rng, n: int):
     pk, nw = mc.packed_digits(native._scalars_to_u64(sc, ORDER), ORDER)
     dig = torch.from_numpy(pk).to(dev)[None]
     P = g[:n][None]
-    S = mc.slices_for(n)
+    S = mc.slices_for(n, mc.ACCUM_POINTS_PER_THREAD)
     acc = mb.msm_accumulate(P, dig, S)
     acc_plain, k5_plain = cuda_once(
         torch, lambda: mb.msm_accumulate_plain(P, dig, S))
@@ -1189,10 +1255,8 @@ def check_main_shapes_bn(torch, native, mc, mb, cbn, rng, n: int):
     for name, st in stats.items():
         st["bound_ms"], st["bound_by"] = bound(torch, st["bytes"], st["muls"],
                                                per_mul=1)
-        log(f"   {name} [{st['shape']}]: {st['ms']:.3f} ms, plain "
-            f"{st['plain_ms']:.1f} ms, bound {st['bound_ms']:.4f} ms "
-            f"({st['bound_by']}), 32-bit multiplies {st['muls']}, "
-            f"max_abs_err {st['err']}")
+        st["products"] = st["muls"] / BN_M
+        log_stat(name, st, "32-bit multiplies")
     return stats
 
 
@@ -1410,10 +1474,8 @@ def check_main_shapes_bn2(torch, native, mc, mb2, cb2, rng, n: int):
     for name, st in stats.items():
         st["bound_ms"], st["bound_by"] = bound(torch, st["bytes"], st["muls"],
                                                per_mul=1)
-        log(f"   {name} [{st['shape']}]: {st['ms']:.3f} ms, plain "
-            f"{st['plain_ms']:.1f} ms, bound {st['bound_ms']:.4f} ms "
-            f"({st['bound_by']}), 32-bit multiplies {st['muls']}, "
-            f"max_abs_err {st['err']}")
+        st["products"] = st["muls"] / BN_M
+        log_stat(name, st, "32-bit multiplies")
     return stats
 
 
@@ -1865,7 +1927,10 @@ def probes(torch):
         log(f"   {k} at the TPU probes' shapes and counts: {st['ms']:.3f} ms"
             f" (bound {st['bound_ms']:.4f} ms by operations); plain "
             f"{st['plain_ms']:.3f} ms at {st['plain_iters']} steps")
-    return stats, launches
+    rates = {key: max(r["rate"] for r in rows if r["probe"] == "P2"
+                      and r["case"] == case and r["shape"] == "full")
+             for key, case in (("ed", "mul25519"), ("bn", "fp_mul"))}
+    return stats, launches, rates
 
 
 def main() -> int:
@@ -1895,7 +1960,11 @@ def main() -> int:
         log(card)
     with Phase("build"):
         t0 = time.perf_counter()
-        nvcc_s = _cuda_build.build(verbose=True)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            nvcc_s = _cuda_build.build(verbose=True)
+        log(out.getvalue().rstrip())
+        log_accum_usage(ptxas_usage(out.getvalue()))
         t1 = time.perf_counter()
         assert native.available() and native.fastser() is not None
         log(f"   nvcc {nvcc_s:.1f} s; C++ host tier "
@@ -1953,7 +2022,8 @@ def main() -> int:
         koe(torch, vm, mc)
         koe_parity(torch, vm, mc)
     with Phase("probe kernels against their plain versions, then timed"):
-        probe_stats, probe_launches = probes(torch)
+        probe_stats, probe_launches, rates = probes(torch)
+    product_bounds(stats, rates)
     stats.update(probe_stats)
     launches.update(probe_launches)
 
@@ -1974,6 +2044,8 @@ def main() -> int:
             "bound_by": st["bound_by"], "library_ms": None,
             **({"iters": st["iters"], "plain_iters": st["plain_iters"]}
                if name in PROBE_KERNELS else {}),
+            **({"bound_product_ms": st["bound_product_ms"]}
+               if "bound_product_ms" in st else {}),
         }
         for name, st in stats.items()
     ]

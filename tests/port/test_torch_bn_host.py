@@ -57,6 +57,11 @@ def k():
 
 def _rows(k, n, seed, identity_at=()):
     """Input rows of n points, every third one with Z != 1."""
+    return k.cbn.encode_points(_points(n, seed, identity_at), "cpu")
+
+
+def _points(n, seed, identity_at=()):
+    """n points, every third one in jacobian coordinates with Z != 1."""
     rng = random.Random(seed)
     pts = native.bn_batch_exp(BNPoint.generator,
                               [rng.randrange(1, ORDER) for _ in range(n)])
@@ -67,7 +72,7 @@ def _rows(k, n, seed, identity_at=()):
     for i in identity_at:
         if i < n:
             pts[i] = BNPoint.identity
-    return k.cbn.encode_points(pts, "cpu")
+    return pts
 
 
 def _u64(t):
@@ -79,21 +84,87 @@ def _scalars(n, seed):
     return (EDGE + [rng.randrange(ORDER) for _ in range(n)])[:n]
 
 
-@pytest.mark.parametrize("n", [1, 7, 40])
-def test_msm_bodies_match_plain(host_lib, n, k):
-    rows = _rows(k, n, n, identity_at=(2,))
-    pk, nw = k.mc.packed_digits(native._scalars_to_u64(_scalars(n, n), ORDER),
-                                ORDER)
-    S = k.mc.slices_for(n)
-    work = np.zeros((n, 12), np.uint64)
-    acc = np.zeros((nw, S, 12), np.uint64)
-    wsum = np.zeros((nw, 12), np.uint64)
-    out = np.zeros(12, np.uint64)
-    pts = _u64(rows)
-    host_lib.host_bn_msm(_p(pts), _p(work), _p(pk), n, nw, S, _p(acc),
-                         _p(wsum), _p(out))
-    plain = k.mb.msm_plain(rows[None], k.torch.from_numpy(pk)[None])
-    assert np.array_equal(out, _u64(plain)[0])
+# K5's cases: id -> (n, batches, slice count S or None for slices_for).
+# Each batch holds identity points (index 2, and 5 from n = 40 on), an
+# all-zero scalar column (the scalar 0 at index 0) and scalars whose digits
+# reach 8 and -7; S = 3 leaves a ragged last row of points, S = 300 slices
+# with no point
+MSM_CASES = {"1": (1, 1, None), "7": (7, 1, None), "40": (40, 1, None),
+             "40-B2-S3": (40, 2, 3), "40-B2-S300": (40, 2, 300),
+             "40-S300": (40, 1, 300), "300-B2": (300, 2, None)}
+SENTINEL = np.uint64(0xFFFFFFFFFFFFFFFF)  # in every row before a call
+
+
+def _msm_scalars(n, seed):
+    """The edge scalars, then scalars with digits 8 (8 * 16^k) and -7
+    (ORDER - 7 * 16^k), then random ones."""
+    rng = random.Random(seed)
+    special = [8, ORDER - 7, 8 << 60, ORDER - (7 << 100), 0]
+    return (EDGE + special + [rng.randrange(ORDER) for _ in range(n)])[:n]
+
+
+def _int(words):
+    return sum(int(x) << (64 * i) for i, x in enumerate(words))
+
+
+def _affine(row):
+    """(x, y) of a working row, None for the identity (Z = 0, which must
+    be (0 : Y : 0) with Y != 0: an all-zero row fails here)."""
+    x, y, z = (_int(row[4 * j : 4 * j + 4]) for j in range(3))
+    if z % P == 0:
+        assert x % P == 0 and y % P != 0
+        return None
+    zi = pow(z, -1, P)
+    return x * zi % P, y * zi % P
+
+
+@pytest.mark.parametrize("case", list(MSM_CASES))
+def test_msm_bodies_match_plain(host_lib, case, k):
+    """K5's table and accumulation bodies over the kernel's whole grid
+    against the plain version, accumulators compared as affine points; the
+    table against m * P; at one batch, K5 then K6 against msm_plain."""
+    n, B, S = MSM_CASES[case]
+    S = S or k.mc.slices_for(n, k.mc.ACCUM_POINTS_PER_THREAD)
+    pts = [_points(n, 17 * n + b, identity_at=(2, 5) if n >= 40 else (2,))
+           for b in range(B)]
+    rows_t = [k.cbn.encode_points(p, "cpu") for p in pts]
+    pk = []
+    for b in range(B):
+        pkb, nw = k.mc.packed_digits(
+            native._scalars_to_u64(_msm_scalars(n, n + b), ORDER), ORDER)
+        pk.append(pkb)
+    assert len({p.shape for p in pk}) == 1
+    pk = np.ascontiguousarray(np.stack(pk))
+    d = k.mc.unpack_digits(k.torch.from_numpy(pk))
+    assert not d[:, :, 0].any()
+    if n > len(EDGE) + 1:
+        assert (d[:, :, len(EDGE)] == 8).any() and (d == -7).any()
+    rows = np.ascontiguousarray(np.stack([_u64(r) for r in rows_t]))
+    tbl = np.full((B, n, 8, 12), SENTINEL)
+    host_lib.host_bn_table(_p(rows), _p(tbl), ctypes.c_longlong(B * n))
+    for b in range(B):
+        for i in range(min(n, 6)):
+            for m in range(1, 9):
+                want = (pts[b][i] ** m).normalize()
+                got = _affine(tbl[b, i, m - 1])
+                if want == BNPoint.identity:
+                    assert got is None
+                else:
+                    assert got == (int(want.x), int(want.y))
+    plain = _u64(k.mb.msm_accumulate_plain(k.torch.stack(rows_t),
+                                           k.torch.from_numpy(pk), S))
+    acc = np.full((B, nw, S, 12), SENTINEL)
+    host_lib.host_bn_msm_accum(_p(tbl), _p(pk), B, n, nw, S, _p(acc))
+    assert ([_affine(r) for r in acc.reshape(-1, 12)]
+            == [_affine(r) for r in plain.reshape(-1, 12)])
+    if B == 1:
+        acc1 = np.full((nw, S, 12), SENTINEL)
+        wsum = np.zeros((nw, 12), np.uint64)
+        out = np.zeros(12, np.uint64)
+        host_lib.host_bn_msm(_p(rows[0]), _p(tbl[0]), _p(pk[0]), n, nw, S,
+                             _p(acc1), _p(wsum), _p(out))
+        full = k.mb.msm_plain(rows_t[0][None], k.torch.from_numpy(pk))
+        assert np.array_equal(out, _u64(full)[0])
 
 
 @pytest.mark.parametrize("n", [1, 7, 40])

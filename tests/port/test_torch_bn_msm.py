@@ -193,6 +193,17 @@ def test_msm_plain_matches_reference(n, k):
     assert got.z in (0, 1)  # normalized
 
 
+def test_msm_plain_with_a_ragged_last_slice_matches_reference(k):
+    """K5's slicing at 32 points a thread (ACCUM_POINTS_PER_THREAD): 70
+    points in S = 3 slices, the last one a point short."""
+    n = 70
+    assert n % k.mc.slices_for(n, k.mc.ACCUM_POINTS_PER_THREAD)
+    pts = _ref_points(n, 2 * n, identity_at=(69,))
+    sc = _scalars(n, 2 * n + 1)
+    got = k.mb.msm([_port(p) for p in pts], sc)
+    assert _affine(got) == _affine(ref_native.bn_msm(pts, sc))
+
+
 @pytest.mark.parametrize("n", [1, 17, 64])
 def test_fold_plain_matches_reference(n, k):
     gl = _ref_points(n, 2 * n, identity_at=(2,))

@@ -73,18 +73,89 @@ def _scalars(n, seed):
     return (EDGE + [rng.randrange(ELL) for _ in range(n)])[:n]
 
 
-@pytest.mark.parametrize("n", [1, 7, 40])
-def test_msm_bodies_match_plain(host_lib, n, k):
-    rows = _points(n, n)
-    pk, nw = k.mc.packed_digits(native._ints_to_u64x4(_scalars(n, n), ELL))
-    S = k.mc.slices_for(n)
-    acc = np.zeros((nw, S, 16), np.uint64)
-    wsum = np.zeros((nw, 16), np.uint64)
-    out = np.zeros(16, np.uint64)
-    host_lib.host_msm(_p(rows), _p(pk), n, nw, S, _p(acc), _p(wsum), _p(out))
-    plain = k.mc.msm_plain(k.ced.from_reference_rows(rows, "cpu")[None],
-                           k.torch.from_numpy(pk)[None])
-    assert np.array_equal(out, k.ced.to_rows(plain)[0])
+# K1's cases: id -> (n, batches, slice count S or None for slices_for).
+# Each batch holds an identity point (index 2), an all-zero scalar column
+# (the scalar 0 at index 0) and scalars whose digits reach 8 and -7;
+# S = 3 leaves a ragged last row of points, S = 300 slices with no point
+MSM_CASES = {"1": (1, 1, None), "7": (7, 1, None), "40": (40, 1, None),
+             "40-B2-S3": (40, 2, 3), "40-B2-S300": (40, 2, 300),
+             "40-S300": (40, 1, 300), "300-B2": (300, 2, None)}
+SENTINEL = np.uint64(0xFFFFFFFFFFFFFFFF)  # in every row before a call
+
+
+def _msm_scalars(n, seed):
+    """The edge scalars, then scalars with digits 8 (8 * 16^k) and -7
+    (ELL - 7 * 16^k), then random ones."""
+    rng = random.Random(seed)
+    special = [8, ELL - 7, 8 << 60, ELL - (7 << 100), 0]
+    return (EDGE + special + [rng.randrange(ELL) for _ in range(n)])[:n]
+
+
+def _ext_affine(rows):
+    """(x, y) of each extended row [..., 16] (X, Y, Z, T), asserting
+    Z != 0 and T Z = X Y mod p: a row that was never stored (the sentinel)
+    or is degenerate fails here."""
+    out = []
+    for r in rows.reshape(-1, 16):
+        x, y, z, t = (_fe_int(r[4 * j : 4 * j + 4]) for j in range(4))
+        assert z % P and (t * z - x * y) % P == 0
+        zi = pow(z, -1, P)
+        out.append((x * zi % P, y * zi % P))
+    return out
+
+
+def _pre_affine(row):
+    """(x, y) of a precomputed-form row (Y+X, Y-X, 2dT, 2Z)."""
+    ypx, ymx, _t2d, z2 = (_fe_int(row[4 * j : 4 * j + 4]) for j in range(4))
+    zi = pow(z2, -1, P)
+    return (ypx - ymx) * zi % P, (ypx + ymx) * zi % P
+
+
+@pytest.mark.parametrize("case", list(MSM_CASES))
+def test_msm_bodies_match_plain(host_lib, case, k):
+    """K1's table and accumulation bodies over the kernel's whole grid
+    against the plain version, accumulators compared as affine points; the
+    table against m * P; at one batch, K1 then K2 against msm_plain."""
+    n, B, S = MSM_CASES[case]
+    S = S or k.mc.slices_for(n, k.mc.ACCUM_POINTS_PER_THREAD)
+    pts = [native.ed_batch_exp(EdwardsPoint.generator,
+                               [random.Random(31 * n + b).randrange(1, ELL)
+                                for _ in range(n)]) for b in range(B)]
+    for b in range(B):
+        if n > 2:
+            pts[b][2] = EdwardsPoint.identity
+    rows = np.stack([native._pts_to_u64(p) for p in pts])  # [B, n, 16]
+    arrs = [native._ints_to_u64x4(_msm_scalars(n, n + b), ELL)
+            for b in range(B)]
+    packed = [k.mc.packed_digits(a) for a in arrs]
+    nw = max(w for _, w in packed)
+    assert all(w == nw for _, w in packed)
+    pk = np.ascontiguousarray(np.stack([p for p, _ in packed]))
+    d = k.mc.unpack_digits(k.torch.from_numpy(pk))
+    assert not d[:, :, 0].any()
+    if n > len(EDGE) + 1:
+        assert (d[:, :, len(EDGE)] == 8).any() and (d == -7).any()
+    tbl = np.full((B, n, 8, 16), SENTINEL)
+    host_lib.host_msm_table(_p(rows), _p(tbl), ctypes.c_longlong(B * n))
+    for b in range(B):
+        for i in range(min(n, 4)):
+            for m in range(1, 9):
+                want = (pts[b][i] ** m).normalize()
+                assert _pre_affine(tbl[b, i, m - 1]) == (want.x, want.y)
+    pts_t = k.torch.stack([k.ced.from_reference_rows(r, "cpu") for r in rows])
+    plain = k.ced.to_rows(k.mc.msm_accumulate_plain(
+        pts_t, k.torch.from_numpy(pk), S))
+    acc = np.full((B, nw, S, 16), SENTINEL)
+    host_lib.host_msm_accum(_p(tbl), _p(pk), B, n, nw, S, _p(acc))
+    assert _ext_affine(acc) == _ext_affine(plain)
+    if B == 1:
+        acc1 = np.full((nw, S, 16), SENTINEL)
+        wsum = np.zeros((nw, 16), np.uint64)
+        out = np.zeros(16, np.uint64)
+        host_lib.host_msm(_p(rows[0]), _p(tbl[0]), _p(pk[0]), n, nw, S,
+                          _p(acc1), _p(wsum), _p(out))
+        full = k.mc.msm_plain(pts_t, k.torch.from_numpy(pk))
+        assert np.array_equal(out, k.ced.to_rows(full)[0])
 
 
 @pytest.mark.parametrize("n", [1, 7, 40])

@@ -142,6 +142,18 @@ def test_msm_plain_matches_host_multiexp(n, plain_backends):
     assert _affine(got) == _affine(expect)
 
 
+def test_msm_plain_with_a_ragged_last_slice_matches_host(plain_backends, k):
+    """K1's slicing at 32 points a thread (ACCUM_POINTS_PER_THREAD): 70
+    points in S = 3 slices, the last one a point short."""
+    n = 70
+    assert n % k.mc.slices_for(n, k.mc.ACCUM_POINTS_PER_THREAD)
+    pts = _ref_points(n, 2 * n)
+    sc = _scalars(n, 2 * n + 1)
+    expect = ref_dispatch._host_multiexp(pts, sc)
+    got = dispatch.multiexp([_port(p) for p in pts], sc)
+    assert _affine(got) == _affine(expect)
+
+
 @pytest.mark.parametrize("n", [1, 7, 300])
 def test_fold_plain_matches_reference_fold(n, plain_backends):
     gl, gr = _ref_points(n, 2 * n), _ref_points(n, 2 * n + 1)

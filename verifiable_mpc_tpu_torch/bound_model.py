@@ -26,3 +26,11 @@ def ops_ms(sms: int, count: float, per_sm_clk: float = IMAD_PER_SM_CLK):
     """Milliseconds for ``count`` operations at ``per_sm_clk`` lanes per SM
     per clock on ``sms`` SMs at the boost clock."""
     return count / (sms * per_sm_clk * BOOST_HZ) * 1e3
+
+
+def products_ms(products: float, per_s: float) -> float:
+    """Milliseconds for ``products`` field products at ``per_s`` products
+    a second: the corrected bound, with the rate a field product measured
+    at full occupancy (probe P2, ``probes.probe_vpu``), which the carries
+    hold to about half of the multiply-only rate."""
+    return products / per_s * 1e3

@@ -15,10 +15,12 @@
 // Data formats (all little-endian):
 //   input row    12 x u64: X, Y, Z, four u64 limbs each, jacobian, each
 //                coordinate canonical in standard form: the rows of
-//                native._bn_pts_to_u64 (ops/curve_bn.py).  K5, K7 and K8
-//                first turn them into working rows (bn_encode_kernel).
+//                native._bn_pts_to_u64 (ops/curve_bn.py).  K7 and K8
+//                first turn them into working rows (bn_encode_kernel),
+//                K5 into its table (bn_table_kernel).
 //   working row  12 x u64: X, Y, Z, projective, each coordinate canonical
 //                in Montgomery form (K5's accumulators, K6's input)
+//   K5 table     working rows [n][8]: each point's multiples 1..8
 //   result row   12 x u64: the normalized point in standard form, (x, y, 1),
 //                or (1, 1, 0) for the identity (BNPoint.identity); an
 //                input row too
@@ -165,32 +167,42 @@ FE_FN void g1_store_normalized(uint64_t *row, const g1p &p) {
   fp_store(row + 8, one);
 }
 
+// K5's first launch, for one point: its input row -> the working rows of
+// its multiples 1..8 (tbl_rows [8][12], entry m - 1 holding m P): the
+// encoding and 7 complete adds, once per point, shared by all its windows.
+// An identity input (Z = 0) gives identity entries (0 : R : 0).
+FE_FN void bn_table_one(const uint64_t *in_row, uint64_t *tbl_rows) {
+  g1p p, cur;
+  g1_load_jacobian(p, in_row);
+  g1_store(tbl_rows, p);
+  cur = p;
+  for (int m = 2; m <= 8; m++) {
+    g1p nxt;
+    g1_add(nxt, cur, p);
+    cur = nxt;
+    g1_store(tbl_rows + (size_t)(m - 1) * 12, cur);
+  }
+}
+
 // K5 body (B1's BN instance, msm_pallas._make_chunk_kernel with the BN
-// adapter): the window-w accumulator of slice s over working rows.  The
-// slice holds points
+// adapter): the window-w accumulator of slice s.  The slice holds points
 // i = s, s + S, s + 2S, ... (neighbouring threads read neighbouring
-// points).  For each point the multiple |d| P is built on the fly (|d| - 1
-// adds), negated for d < 0, and added in.
-FE_FN void bn_msm_accum_one(const uint64_t *pts, const uint8_t *digits,
+// points); tbl [n][8][12] holds each point's multiples 1..8 as working
+// rows.  Each (window, point) with a nonzero digit reads one entry,
+// +-|d| P, negates it for d < 0 and adds it; a zero digit is skipped.
+FE_FN void bn_msm_accum_one(const uint64_t *tbl, const uint8_t *digits,
                             uint64_t *acc_row, int n, int w, int s, int S) {
   g1p acc;
   g1_identity(acc);
   for (int i = s; i < n; i += S) {
     int d = digit_at(digits, n, w, i);
     if (d == 0) continue;
-    int m = d < 0 ? -d : d;
-    g1p p, cur;
-    g1_load(p, pts + (size_t)i * 12);
-    cur = p;
-    for (int k = 2; k <= m; k++) {
-      g1p nxt;
-      g1_add(nxt, cur, p);
-      cur = nxt;
-    }
-    if (d < 0) g1_neg(cur);
-    g1p nxt;
-    g1_add(nxt, acc, cur);
-    acc = nxt;
+    g1p q;
+    g1_load(q, tbl + ((size_t)i * 8 + (d < 0 ? -d : d) - 1) * 12);
+    if (d < 0) g1_neg(q);
+    g1p t;
+    g1_add(t, acc, q);
+    acc = t;
   }
   g1_store(acc_row, acc);
 }
@@ -267,8 +279,8 @@ FE_FN void bn_comb_norm_one(const uint64_t *table, const uint8_t *digits,
 }
 
 #if defined(__CUDACC__)
-// The first launch of K5, K7 and K8: n input rows -> working rows, one
-// thread per row (each source holds its own copy).
+// The first launch of K7 and K8: n input rows -> working rows, one thread
+// per row (each source holds its own copy).
 static __global__ void bn_encode_kernel(const uint64_t *in, uint64_t *out,
                                         long long n) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;

@@ -8,6 +8,7 @@
 //   point row    16 x u64: x, y, z, t, four u64 limbs each (the row format
 //                of native._pts_to_u64)
 //   pre row      16 x u64: Y+X, Y-X, 2dT, 2Z (precomputed form)
+//   K1 table     pre rows [n][8]: each point's multiples 1..8
 //   packed digits u8 [nw/2][n] (digits.cuh)
 //   bucket layout int32 [nw][D][lanes] perm (point index, -1 = padding)
 //                and sgn (1 = negate), msm_bucket_cuda.bucket_layout
@@ -19,38 +20,55 @@
 #include "digits.cuh"
 #include "fe25519.cuh"
 
+FE_FN void ge_pre_store(uint64_t *row, const ge_pre &q) {
+  fe_store(row, q.ypx);
+  fe_store(row + 4, q.ymx);
+  fe_store(row + 8, q.t2d);
+  fe_store(row + 12, q.z2);
+}
+
+// K1's first launch, for one point: its row -> the precomputed-form rows
+// of its multiples 1..8 (tbl_rows [8][16], entry m - 1 holding m P): one
+// conversion and 7 mixed adds with 7 conversions, once per point, shared
+// by all its windows.  An identity point gives identity entries.
+FE_FN void msm_table_one(const uint64_t *pt_row, uint64_t *tbl_rows) {
+  ge_ext cur;
+  ge_pre p1, q;
+  ge_load(cur, pt_row);
+  ge_to_pre(p1, cur);
+  ge_pre_store(tbl_rows, p1);
+  for (int m = 2; m <= 8; m++) {
+    ge_ext nxt;
+    ge_add_pre(nxt, cur, p1);
+    cur = nxt;
+    ge_to_pre(q, cur);
+    ge_pre_store(tbl_rows + (size_t)(m - 1) * 16, q);
+  }
+}
+
 // K1 body (B1, msm_pallas._make_chunk_kernel): the window-w accumulator of
 // slice s.  The slice holds points i = s, s + S, s + 2S, ... (neighbouring
-// threads read neighbouring points).  For each point the multiples
-// 1..|d| of the 0..8 precomputed-form table are built on the fly (the
-// table entry the digit selects), negated for d < 0, and mixed-added.
-FE_FN void msm_accum_one(const uint64_t *pts, const uint8_t *digits,
+// threads read neighbouring points); tbl [n][8][16] holds each point's
+// multiples 1..8 in precomputed form.  Each (window, point) reads one
+// entry, +-|d| P, negates it for d < 0 (Y+X and Y-X swap, 2dT negates)
+// and mixed-adds it.  A zero digit adds the identity entry (the unified
+// add is complete), so every point costs one add and no branch skips it.
+FE_FN void msm_accum_one(const uint64_t *tbl, const uint8_t *digits,
                          uint64_t *acc_row, int n, int w, int s, int S) {
   ge_ext acc;
   ge_identity(acc);
   for (int i = s; i < n; i += S) {
     int d = digit_at(digits, n, w, i);
-    if (d == 0) continue;
-    int m = d < 0 ? -d : d;
-    ge_ext p, cur;
-    ge_load(p, pts + (size_t)i * 16);
-    ge_pre pre_p, sel;
-    ge_to_pre(pre_p, p);
-    cur = p;
-    for (int k = 2; k <= m; k++) {
-      ge_ext nxt;
-      ge_add_pre(nxt, cur, pre_p);
-      cur = nxt;
-    }
-    if (m == 1) {
-      sel = pre_p;
+    ge_pre q;
+    if (d == 0) {
+      ge_pre_identity(q);
     } else {
-      ge_to_pre(sel, cur);
+      ge_pre_load(q, tbl + ((size_t)i * 8 + (d < 0 ? -d : d) - 1) * 16);
     }
-    if (d < 0) ge_pre_neg(sel);
-    ge_ext nxt;
-    ge_add_pre(nxt, acc, sel);
-    acc = nxt;
+    if (d < 0) ge_pre_neg(q);
+    ge_ext t;
+    ge_add_pre(t, acc, q);
+    acc = t;
   }
   ge_store(acc_row, acc);
 }
@@ -139,13 +157,6 @@ FE_FN void comb_norm_one(const uint64_t *table, const uint8_t *digits, int n,
 // ---------------------------------------------------------------------------
 // K13 bodies (B6, msm_bucket._make_accum_kernel): bucket accumulation
 // ---------------------------------------------------------------------------
-
-FE_FN void ge_pre_store(uint64_t *row, const ge_pre &q) {
-  fe_store(row, q.ypx);
-  fe_store(row + 4, q.ymx);
-  fe_store(row + 8, q.t2d);
-  fe_store(row + 12, q.z2);
-}
 
 // K13's first launch: a point row -> its precomputed-form row
 FE_FN void bucket_pre_one(const uint64_t *pt_row, uint64_t *pre_row) {

@@ -21,12 +21,32 @@
 
 extern "C" {
 
-// K1 then K2 for one batch: pts [n][16], digits [nw/2][n] -> out [16]
-void host_msm(const uint64_t *pts, const uint8_t *digits, int n, int nw,
-              int S, uint64_t *acc, uint64_t *wsum, uint64_t *out) {
+// K1's first launch: n points' rows [n][16] -> tbl [n][8][16]
+void host_msm_table(const uint64_t *pts, uint64_t *tbl, long long n) {
+  for (long long i = 0; i < n; i++) msm_table_one(pts + i * 16, tbl + i * 128);
+}
+
+// K1's second launch, every (batch, window, slice) thread of its grid:
+// tbl [B][n][8][16], digits [B][nw/2][n] -> acc [B][nw][S][16]
+void host_msm_accum(const uint64_t *tbl, const uint8_t *digits, int B, int n,
+                    int nw, int S, uint64_t *acc) {
+  for (int b = 0; b < B; b++)
+    for (int w = 0; w < nw; w++)
+      for (int s = 0; s < S; s++)
+        msm_accum_one(tbl + (size_t)b * n * 128,
+                      digits + (size_t)b * (nw / 2) * n,
+                      acc + ((size_t)(b * nw + w) * S + s) * 16, n, w, s, S);
+}
+
+// K1 then K2 for one batch: pts [n][16], tbl [n][8][16] scratch,
+// digits [nw/2][n] -> out [16]
+void host_msm(const uint64_t *pts, uint64_t *tbl, const uint8_t *digits,
+              int n, int nw, int S, uint64_t *acc, uint64_t *wsum,
+              uint64_t *out) {
+  host_msm_table(pts, tbl, n);
   for (int w = 0; w < nw; w++)
     for (int s = 0; s < S; s++)
-      msm_accum_one(pts, digits, acc + ((size_t)w * S + s) * 16, n, w, s, S);
+      msm_accum_one(tbl, digits, acc + ((size_t)w * S + s) * 16, n, w, s, S);
   for (int w = 0; w < nw; w++) {
     ge_ext sum;
     ge_identity(sum);
@@ -164,15 +184,33 @@ void host_bn_encode(const uint64_t *in, uint64_t *out, int n) {
                                             out + (size_t)i * 12);
 }
 
-// K5 then K6 for one batch: pts [n][12] input rows, work [n][12],
-// digits [nw/2][n] -> out [12]
-void host_bn_msm(const uint64_t *pts, uint64_t *work, const uint8_t *digits,
+// K5's first launch: n input rows [n][12] -> tbl [n][8][12]
+void host_bn_table(const uint64_t *in, uint64_t *tbl, long long n) {
+  for (long long i = 0; i < n; i++) bn_table_one(in + i * 12, tbl + i * 96);
+}
+
+// K5's second launch, as host_msm_accum: tbl [B][n][8][12], digits
+// [B][nw/2][n] -> acc [B][nw][S][12]
+void host_bn_msm_accum(const uint64_t *tbl, const uint8_t *digits, int B,
+                       int n, int nw, int S, uint64_t *acc) {
+  for (int b = 0; b < B; b++)
+    for (int w = 0; w < nw; w++)
+      for (int s = 0; s < S; s++)
+        bn_msm_accum_one(tbl + (size_t)b * n * 96,
+                         digits + (size_t)b * (nw / 2) * n,
+                         acc + ((size_t)(b * nw + w) * S + s) * 12, n, w, s,
+                         S);
+}
+
+// K5 then K6 for one batch: pts [n][12] input rows, tbl [n][8][12]
+// scratch, digits [nw/2][n] -> out [12]
+void host_bn_msm(const uint64_t *pts, uint64_t *tbl, const uint8_t *digits,
                  int n, int nw, int S, uint64_t *acc, uint64_t *wsum,
                  uint64_t *out) {
-  host_bn_encode(pts, work, n);
+  host_bn_table(pts, tbl, n);
   for (int w = 0; w < nw; w++)
     for (int s = 0; s < S; s++)
-      bn_msm_accum_one(work, digits, acc + ((size_t)w * S + s) * 12, n, w,
+      bn_msm_accum_one(tbl, digits, acc + ((size_t)w * S + s) * 12, n, w,
                        s, S);
   for (int w = 0; w < nw; w++) {
     g1p sum;

@@ -64,7 +64,7 @@ def lib():
         build()
         so = ctypes.CDLL(LIB)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        so.vmpc_cu_msm_accum.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
+        so.vmpc_cu_msm_accum.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
         so.vmpc_cu_msm_tail.argtypes = [vp, vp, vp, ci, ci, ci, vp]
         so.vmpc_cu_fold_norm.argtypes = [vp, vp, vp, ci, vp, ci, vp]
         so.vmpc_cu_comb_norm.argtypes = [vp, vp, ci, ci, vp, vp]

@@ -54,7 +54,13 @@ def msm_accumulate(points: torch.Tensor, digits: torch.Tensor,
     """K5: window accumulators [B, nw, S, 12] (working rows, not
     normalized) of B MSMs; slice s holds points s, s + S, s + 2S, ...
     points [B, n, 12] input rows, digits [B, nw/2, n] packed signed
-    windows.  CPU: :func:`msm_accumulate_plain`."""
+    windows.
+
+    Allocates the accumulators and a scratch table [B, n, 8, 12] (each
+    point's multiples 1..8 as working rows, 768 bytes a point: 100 MB at
+    n = 2^17), which the first of K5's two launches fills from the input
+    rows and the second reads, one entry per (window, point).
+    CPU: :func:`msm_accumulate_plain`."""
     mc._check_rows(points, "points", 3, ROW)
     B, n, _ = points.shape
     mc._check_digits(digits, "digits", (B, digits.shape[1], n))
@@ -65,11 +71,12 @@ def msm_accumulate(points: torch.Tensor, digits: torch.Tensor,
         return msm_accumulate_plain(points, digits, S)
     from . import _cuda_build as cb
 
-    work = torch.empty_like(points)
+    tbl = torch.empty((B, n, TABLE_S - 1, ROW), dtype=torch.int64,
+                      device=points.device)
     acc = torch.empty((B, nw, S, ROW), dtype=torch.int64,
                       device=points.device)
     cb.check(cb.lib().vmpc_cu_bn_msm_accum(
-        points.data_ptr(), work.data_ptr(), digits.data_ptr(),
+        points.data_ptr(), tbl.data_ptr(), digits.data_ptr(),
         acc.data_ptr(), B, n, nw, S, mc._stream(points)),
         "bn_msm_accumulate")
     mc.LAUNCHES["bn_msm_accumulate"] += 1
@@ -97,8 +104,8 @@ def msm_tail(acc: torch.Tensor) -> torch.Tensor:
 def msm_rows(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
     """sum_i d_i * P_i for B independent MSMs -> [B, 12] normalized rows
     (K5 then K6)."""
-    return msm_tail(msm_accumulate(points, digits,
-                                   mc.slices_for(points.shape[1])))
+    return msm_tail(msm_accumulate(points, digits, mc.slices_for(
+        points.shape[1], mc.ACCUM_POINTS_PER_THREAD)))
 
 
 def fold_rows(gl: torch.Tensor, gr: torch.Tensor,
@@ -208,7 +215,8 @@ def msm_tail_plain(acc: torch.Tensor) -> torch.Tensor:
 def msm_plain(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
     """Plain version of K5 + K6."""
     return msm_tail_plain(
-        msm_accumulate_plain(points, digits, mc.slices_for(points.shape[1])))
+        msm_accumulate_plain(points, digits, mc.slices_for(
+            points.shape[1], mc.ACCUM_POINTS_PER_THREAD)))
 
 
 def fold_plain(gl: torch.Tensor, gr: torch.Tensor,

@@ -44,7 +44,11 @@ WINDOW = 4
 NWINDOWS = 64  # 256 / WINDOW
 TABLE = 1 << WINDOW  # fold table 0..15 (unsigned digits)
 TABLE_S = (1 << (WINDOW - 1)) + 1  # 0..8: signed-digit table
-POINTS_PER_THREAD = 16  # K1: points one (window, slice) thread walks
+# points one (window, slice) thread of a window accumulation walks: K1 and
+# K5 (32: 3-5 % less time than 16 for K1 + K2 and K5 + K6 at 2^17 points
+# on an H100, PERF.md), K9 (16)
+ACCUM_POINTS_PER_THREAD = 32
+POINTS_PER_THREAD = 16
 
 # kernel launches, counted by the wrappers where they launch (never by the
 # plain versions); the bn_* ones by ops/msm_bn_cuda.py, the bn2_* ones by
@@ -256,10 +260,11 @@ def _same_device(*ts):
     return dev
 
 
-def slices_for(n: int) -> int:
-    """K1's slice count: each (window, slice) thread walks about
-    POINTS_PER_THREAD points."""
-    return max(1, -(-n // POINTS_PER_THREAD))
+def slices_for(n: int, per_thread: int = POINTS_PER_THREAD) -> int:
+    """A window accumulation's slice count: each (window, slice) thread
+    walks about ``per_thread`` points (K1 and K5 take
+    ACCUM_POINTS_PER_THREAD, K9 the default)."""
+    return max(1, -(-n // per_thread))
 
 
 def msm_accumulate(points: torch.Tensor, digits: torch.Tensor,
@@ -267,6 +272,11 @@ def msm_accumulate(points: torch.Tensor, digits: torch.Tensor,
     """K1: window accumulators [B, nw, S, 16] (extended rows, not
     normalized) of B MSMs; slice s holds points s, s + S, s + 2S, ...
     points [B, n, 16] rows, digits [B, nw/2, n] packed signed windows.
+
+    Allocates the accumulators and a scratch table [B, n, 8, 16] (each
+    point's multiples 1..8 in precomputed form, 1 KB a point: 268 MB at
+    B = 2, n = 2^17), which the first of K1's two launches fills and the
+    second reads, one entry per (window, point).
     CPU: :func:`msm_accumulate_plain`."""
     _check_rows(points, "points", 3)
     B, n, _ = points.shape
@@ -278,10 +288,12 @@ def msm_accumulate(points: torch.Tensor, digits: torch.Tensor,
         return msm_accumulate_plain(points, digits, S)
     from . import _cuda_build as cb
 
+    tbl = torch.empty((B, n, TABLE_S - 1, 16), dtype=torch.int64,
+                      device=points.device)
     acc = torch.empty((B, nw, S, 16), dtype=torch.int64, device=points.device)
     cb.check(cb.lib().vmpc_cu_msm_accum(
-        points.data_ptr(), digits.data_ptr(), acc.data_ptr(), B, n, nw, S,
-        _stream(points)), "msm_accumulate")
+        points.data_ptr(), tbl.data_ptr(), digits.data_ptr(), acc.data_ptr(),
+        B, n, nw, S, _stream(points)), "msm_accumulate")
     LAUNCHES["msm_accumulate"] += 1
     return acc
 
@@ -307,8 +319,8 @@ def msm_tail(acc: torch.Tensor) -> torch.Tensor:
 def msm_rows(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
     """sum_i d_i * P_i for B independent MSMs -> [B, 16] canonical rows
     (K1 then K2)."""
-    return msm_tail(msm_accumulate(points, digits,
-                                   slices_for(points.shape[1])))
+    return msm_tail(msm_accumulate(
+        points, digits, slices_for(points.shape[1], ACCUM_POINTS_PER_THREAD)))
 
 
 def fold_rows(gl: torch.Tensor, gr: torch.Tensor,
@@ -473,7 +485,8 @@ def msm_tail_plain(acc: torch.Tensor) -> torch.Tensor:
 def msm_plain(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
     """Plain version of K1 + K2."""
     return msm_tail_plain(
-        msm_accumulate_plain(points, digits, slices_for(points.shape[1]))
+        msm_accumulate_plain(points, digits, slices_for(
+            points.shape[1], ACCUM_POINTS_PER_THREAD))
     )
 
 
