@@ -1,28 +1,34 @@
 #!/usr/bin/env python3
-"""Where the time of one GPU prove goes (the PyTorch/CUDA port, one card).
+"""Where the time of one GPU prove or key generation goes (the
+PyTorch/CUDA port, one card).
 
-    python3 chip_profile.py [--snark] [--log2-muls 16] [--out DIR]
+    python3 chip_profile.py [--snark | --keygen] [--log2-muls 16] [--out DIR]
 
 Builds the chain circuit of ``chip_smoke.py``, sets up the generators on
 the card and proves twice with no profiler (the first prove of a process
 fills the host caches, the second is the steady time).  With ``--snark``
 the prove is Pinocchio's over BN256 (the SparseQAP of the chain circuit,
 keys from generate_keys_fast, compute_proof_fast: seven G1 MSMs and the
-twist MSM on the card); without it,
-the AC20 compressed-pivot prove over Ed25519.  Then it proves twice more;
-every proof is verified outside the timed and profiled parts:
+twist MSM on the card); with ``--keygen`` the stage is Pinocchio's key
+generation itself (generate_keys_fast: eight G1 combs and the twist
+batch-exp on the card; its first run in a process also builds the comb
+tables); without either, the AC20 compressed-pivot prove over Ed25519.
+Then it runs the stage twice more; every proof is verified, and every key
+generation checked for its kernels' launches, outside the timed and
+profiled parts:
 
-1. under ``torch.profiler`` (CPU and CUDA activity): the prove's wall
+1. under ``torch.profiler`` (CPU and CUDA activity): the stage's wall
    seconds, the device time of each kernel and copy, and the device's busy
    share (device time over wall time; every launch goes to one stream, so
    the device intervals do not overlap);
 2. under ``cProfile``: the host functions with the most cumulative time,
-   which say where the rest of the prove goes (cProfile slows pure-Python
+   which say where the rest of the stage goes (cProfile slows pure-Python
    code, so its seconds are shares, not times).
 
 With ``--out`` the full host table goes to ``DIR/profile_host.txt``
-(``DIR/profile_host_snark.txt`` with ``--snark``).  The
-last line is one JSON object with the numbers above.  Imports neither jax
+(``DIR/profile_host_snark.txt`` with ``--snark``,
+``DIR/profile_host_keygen.txt`` with ``--keygen``).  The last line is one
+JSON object with the numbers above.  Imports neither jax
 nor the JAX package, and fails without a card.
 """
 
@@ -99,6 +105,24 @@ def snark_path(mc, log2_muls: int):
     return prove, check
 
 
+def keygen_path(mc, log2_muls: int):
+    """(keygen, check) of Pinocchio over BN256: generate_keys_fast on the
+    chain circuit's QAP, and a check that K8 and the twist's K11 ran."""
+    g1, g2, _gf, qap = smoke.snark_setup(log2_muls)
+    keys = ("bn_comb", "bn2_bexp")
+    seen = {}
+
+    def keygen():
+        seen.update((k, mc.LAUNCHES[k]) for k in keys)
+        return smoke.snark_keygen(g1, g2, qap)
+
+    def check(_keys):
+        for k in keys:
+            assert mc.LAUNCHES[k] > seen[k], f"{k} never ran"
+
+    return keygen, check
+
+
 def device_table(torch, prof):
     """{name: (count, device ms)} of the device activity the profiler saw
     (kernels by function name, copies by kind)."""
@@ -116,8 +140,11 @@ def device_table(torch, prof):
 
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--snark", action="store_true",
-                    help="profile the Pinocchio prove over BN256")
+    stage = ap.add_mutually_exclusive_group()
+    stage.add_argument("--snark", action="store_true",
+                       help="profile the Pinocchio prove over BN256")
+    stage.add_argument("--keygen", action="store_true",
+                       help="profile Pinocchio's key generation over BN256")
     ap.add_argument("--log2-muls", type=int, default=None)
     ap.add_argument("--out", help="directory for the full host table")
     args = ap.parse_args(argv)
@@ -134,10 +161,11 @@ def main(argv) -> int:
 
     print(smoke.card_line(), flush=True)
     vm.enable_gpu("cuda")
-    if args.snark:
+    if args.snark or args.keygen:
         log2 = args.log2_muls or smoke.SNARK_LOG2_MULS
-        prove, check = snark_path(mc, log2)
-        path = "pinocchio"
+        path_fn = keygen_path if args.keygen else snark_path
+        prove, check = path_fn(mc, log2)
+        path = "pinocchio-keygen" if args.keygen else "pinocchio"
     else:
         log2 = args.log2_muls or smoke.FLAGSHIP_LOG2_MULS
         prove, check = ac20_path(vm, log2)
@@ -146,8 +174,9 @@ def main(argv) -> int:
     check(proof)
     proof, steady = _timed(torch, prove)
     check(proof)
-    print(f"{path} prove 2^{log2}: first {warm:.3f} s, second {steady:.3f}"
-          " s (no profiler)", flush=True)
+    what = "keygen" if args.keygen else "prove"
+    print(f"{path} {what} 2^{log2}: first {warm:.3f} s, second "
+          f"{steady:.3f} s (no profiler)", flush=True)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -155,7 +184,7 @@ def main(argv) -> int:
     check(proof)
     dev = device_table(torch, prof)
     dev_ms = sum(ms for _n, ms in dev.values())
-    print(f"profiled prove: {wall:.3f} s wall (profiler on)", flush=True)
+    print(f"profiled {what}: {wall:.3f} s wall (profiler on)", flush=True)
     for name, (count, ms) in sorted(dev.items(), key=lambda kv: -kv[1][1]):
         print(f"   device {name}: {count} x, {ms:.3f} ms", flush=True)
     busy = dev_ms / (wall * 1e3) if dev_ms else None
@@ -177,13 +206,15 @@ def main(argv) -> int:
         os.makedirs(args.out, exist_ok=True)
         full = io.StringIO()
         pstats.Stats(host, stream=full).sort_stats("cumulative").print_stats()
-        name = "profile_host_snark.txt" if args.snark else "profile_host.txt"
+        name = ("profile_host_keygen.txt" if args.keygen
+                else "profile_host_snark.txt" if args.snark
+                else "profile_host.txt")
         with open(os.path.join(args.out, name), "w") as f:
             f.write(full.getvalue())
 
     print(json.dumps({
-        "path": path, "log2_muls": log2, "first_prove_s": warm,
-        "second_prove_s": steady, "profiled_prove_s": wall,
+        "path": path, "stage": what, "log2_muls": log2, "first_s": warm,
+        "second_s": steady, "profiled_s": wall,
         "device_ms": dev_ms, "device_busy": busy,
         "device": {name: {"count": c, "ms": ms}
                    for name, (c, ms) in dev.items()},

@@ -100,17 +100,65 @@ def test_msm_bodies_match_plain(host_lib, n, k):
     assert np.array_equal(out, _u64(plain)[0])
 
 
-@pytest.mark.parametrize("n", [1, 7, 40])
-def test_bexp_body_matches_plain(host_lib, n, k):
-    pk, nw = _digits(k, n, 5 * n)
-    base = BNTwistPoint.generator ** 12345
-    table = k.mb2.bexp_table(base, "cpu")
+# K11's cases: id -> (n, threads G, table).  Thread g sums and normalizes
+# the exponents g, g + G, g + 2G, ... with one inversion: G < n leaves
+# ragged groups (the last threads one exponent short).  The exponents of
+# thread 0's group are all 0 (a whole group of identities), and 0 also
+# sits at index 1, in a group with others.  Tables: the C++ tier's (affine
+# rows), an identity base's, and the C++ tier's with every third row
+# rescaled to Z != 1 (the first launch's inversion).
+BEXP_CASES = {"1": (1, 1, "base"), "7": (7, 7, "base"), "40": (40, 40, "base"),
+              "7-G3": (7, 3, "base"), "40-G6": (40, 6, "base"),
+              "40-G6-identity-base": (40, 6, "identity"),
+              "40-G6-jacobian-table": (40, 6, "jacobian")}
+
+
+def _rescaled(k, table, seed):
+    """The table's rows with every third point in jacobian coordinates
+    with Z != 1."""
+    rng = random.Random(seed)
+    pts = k.cb2.decode_rows(table)
+    for i in range(1, len(pts), 3):
+        if pts[i].z == GFp2(0):
+            continue
+        lam = GFp2(rng.randrange(2, P), rng.randrange(P))
+        q = pts[i].normalize()
+        pts[i] = BNTwistPoint(q.x * lam * lam, q.y * lam * lam * lam, lam,
+                              check=False)
+    return k.cb2.encode_points(pts, "cpu")
+SENTINEL = np.uint64(0xFFFFFFFFFFFFFFFF)  # in every row before a call
+
+
+@pytest.mark.parametrize("case", list(BEXP_CASES))
+def test_bexp_body_matches_plain(host_lib, case, k):
+    """K11's comb body over all G threads against bexp_plain, with its
+    output and scratch filled with a sentinel first."""
+    n, G, kind = BEXP_CASES[case]
+    rng = random.Random(5 * n)
+    exps = (EDGE + [rng.randrange(ORDER) for _ in range(n)])[:n]
+    for i in [1] + list(range(0, n, G)):
+        if i < n:
+            exps[i] = 0
+    pk, nw = k.mc.packed_digits(native._scalars_to_u64(exps, ORDER), ORDER)
+    base = (BNTwistPoint.identity if kind == "identity"
+            else BNTwistPoint.generator ** 12345)
+    table = k.mb2.bexp_table(base, nw, "cpu")
+    if kind == "jacobian":
+        table = _rescaled(k, table, n)
+        assert not np.array_equal(_u64(table), _u64(
+            k.mb2.bexp_table(base, nw, "cpu")))
     tb = _u64(table)
     work = np.zeros_like(tb)
-    out = np.zeros((n, 24), np.uint64)
-    host_lib.host_bn2_bexp(_p(tb), _p(work), _p(pk), n, nw, _p(out))
+    out = np.full((n, 24), SENTINEL)
+    pre = np.full((n, 8), SENTINEL)
+    host_lib.host_bn2_bexp(_p(tb), _p(work), _p(pk), n, nw, G, _p(pre),
+                           _p(out))
     plain = k.mb2.bexp_plain(table, k.torch.from_numpy(pk))
     assert np.array_equal(out, _u64(plain))
+    ident = [1, 0, 0, 0, 0, 0, 0, 0, 1] + [0] * 15
+    zero = [i for i in range(n)
+            if i % G == 0 or i == 1 or kind == "identity"]
+    assert all(out[i].tolist() == ident for i in zero)
 
 
 @pytest.mark.parametrize("n", [1, 7, 40])

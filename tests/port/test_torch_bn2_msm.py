@@ -115,8 +115,8 @@ def test_msm_plain_matches_reference(n, k):
 
 @pytest.mark.parametrize("n", [1, 17, 64])
 def test_batch_exp_plain_matches_reference(n, k):
-    """K11's plain version: the host-built 0..8 table of the base, the
-    signed-window ladder; scalar 0 gives exactly the identity."""
+    """K11's plain version: the base's comb table from the C++ tier, one
+    signed entry a window summed; scalar 0 gives exactly the identity."""
     base = _ref_points(1, 4 * n)[0]
     exps = _scalars(n, 4 * n + 1)
     got = k.mb2.batch_exp(_port(base), exps)
@@ -142,6 +142,21 @@ def test_fold_plain_matches_reference(n, k):
     assert [_affine(p) for p in got] == [_affine(p) for p in expect]
 
 
+def test_comb_table_rows_match_host_law(k):
+    """The twist comb table (native.bn2_comb_table through bexp_table) at
+    nw = 8: row w*9 + m is m * 16^(nw-1-w) * base by the JAX package's host
+    law, affine, the identity for m = 0."""
+    base = _ref_points(1, 31)[0]
+    nw = 8
+    rows = k.mb2.bexp_table(_port(base), nw, "cpu")
+    assert tuple(rows.shape) == (nw * 9, 24)
+    got = k.cb2.decode_rows(rows)
+    expect = [base ** (m * 16 ** (nw - 1 - w)) if m else RefPoint.identity
+              for w in range(nw) for m in range(9)]
+    assert [_affine(p) for p in got] == [_affine(p) for p in expect]
+    assert all(p.z == GFp2(0 if i % 9 == 0 else 1) for i, p in enumerate(got))
+
+
 def test_batch_exp_of_identity_base(k):
     got = k.mb2.batch_exp(BNTwistPoint.identity, _scalars(5, 9))
     assert all(repr(p) == repr(BNTwistPoint.identity) for p in got)
@@ -158,7 +173,7 @@ def test_wrappers_reject_malformed_inputs(bad, k):
     torch = k.torch
     pts = k.cb2.encode_points([_port(p) for p in _ref_points(4, 5)], "cpu")
     dig = torch.zeros((4, 4), dtype=torch.uint8)
-    table = k.mb2.bexp_table(BNTwistPoint.generator, "cpu")
+    table = k.mb2.bexp_table(BNTwistPoint.generator, 8, "cpu")
     cdig = np.zeros(64, np.uint8)
     if bad == "dtype":
         call = lambda: k.mb2.msm_rows(pts.to(torch.int32)[None],  # noqa
@@ -171,7 +186,7 @@ def test_wrappers_reject_malformed_inputs(bad, k):
     elif bad == "digits":
         call = lambda: k.mb2.bexp_rows(table, dig.to(torch.int64))  # noqa
     elif bad == "table":
-        call = lambda: k.mb2.bexp_rows(table[:8], dig)  # noqa: E731
+        call = lambda: k.mb2.bexp_rows(table[:-1], dig)  # noqa: E731
     elif bad == "fold_shape":
         call = lambda: k.mb2.fold_rows(pts, pts[:3], cdig)  # noqa: E731
     else:

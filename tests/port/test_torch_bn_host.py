@@ -181,17 +181,61 @@ def test_fold_body_matches_plain(host_lib, n, k):
     assert np.array_equal(out, _u64(plain))
 
 
-@pytest.mark.parametrize("n", [1, 7, 40])
-def test_comb_body_matches_plain(host_lib, n, k):
-    pk, nw = k.mc.packed_digits(native._scalars_to_u64(_scalars(n, 5), ORDER),
-                                ORDER)
-    table = k.mb.comb_table(BNPoint.generator ** 12345, nw, "cpu")
-    out = np.zeros((n, 12), np.uint64)
+# K8's cases: id -> (n, threads G, table).  Thread g sums and normalizes
+# the exponents g, g + G, g + 2G, ... with one inversion: G < n leaves
+# ragged groups (the last threads one exponent short).  The exponents of
+# thread 0's group are all 0 (a whole group of identities), and 0 also
+# sits at index 1, in a group with others.  Tables: the C++ tier's (affine
+# rows), an identity base's, and the C++ tier's with every third row
+# rescaled to Z != 1 (the first launch's inversion).
+COMB_CASES = {"1": (1, 1, "base"), "7": (7, 7, "base"), "40": (40, 40, "base"),
+              "7-G3": (7, 3, "base"), "40-G6": (40, 6, "base"),
+              "40-G6-identity-base": (40, 6, "identity"),
+              "40-G6-jacobian-table": (40, 6, "jacobian")}
+
+
+def _rescaled(p, seed):
+    """p in jacobian coordinates with Z != 1."""
+    lam, q = random.Random(seed).randrange(2, ORDER), p.normalize()
+    return BNPoint(int(q.x) * lam**2, int(q.y) * lam**3, lam, check=False)
+
+
+def _comb_exponents(n, G, seed):
+    exps = _scalars(n, seed)
+    for i in [1] + list(range(0, n, G)):
+        if i < n:
+            exps[i] = 0
+    return exps
+
+
+@pytest.mark.parametrize("case", list(COMB_CASES))
+def test_comb_body_matches_plain(host_lib, case, k):
+    """K8's body over all G threads against comb_plain, with its output and
+    scratch filled with a sentinel first."""
+    n, G, kind = COMB_CASES[case]
+    pk, nw = k.mc.packed_digits(native._scalars_to_u64(
+        _comb_exponents(n, G, 5), ORDER), ORDER)
+    base = (BNPoint.identity if kind == "identity"
+            else BNPoint.generator ** 12345)
+    table = k.mb.comb_table(base, nw, "cpu")
+    if kind == "jacobian":
+        pts = [p if p.z == 0 or i % 3 != 1 else _rescaled(p, i)
+               for i, p in enumerate(k.cbn.decode_rows(table))]
+        table = k.cbn.encode_points(pts, "cpu")
+        assert not np.array_equal(_u64(table), _u64(
+            k.mb.comb_table(base, nw, "cpu")))
+    out = np.full((n, 12), SENTINEL)
+    pre = np.full((n, 4), SENTINEL)
     tb = _u64(table)
     work = np.zeros_like(tb)
-    host_lib.host_bn_comb_norm(_p(tb), _p(work), _p(pk), n, nw, _p(out))
+    host_lib.host_bn_comb_norm(_p(tb), _p(work), _p(pk), n, nw, G, _p(pre),
+                               _p(out))
     plain = k.mb.comb_plain(table, k.torch.from_numpy(pk))
     assert np.array_equal(out, _u64(plain))
+    ident = [1, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0]
+    zero = [i for i in range(n)
+            if i % G == 0 or i == 1 or kind == "identity"]
+    assert all(out[i].tolist() == ident for i in zero)
 
 
 @pytest.mark.parametrize("n", [1, 40])

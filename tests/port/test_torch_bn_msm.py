@@ -231,6 +231,22 @@ def test_comb_plain_matches_reference(n, k):
     assert all(repr(got[i]) == repr(BNPoint.identity) for i in zero)
 
 
+def test_comb_table_rows_match_host_law(k):
+    """The G1 comb table (native.bn_comb_table through comb_table) at
+    nw = 8: row w*9 + m is m * 16^(nw-1-w) * base by the JAX package's host
+    law, affine, the identity for m = 0."""
+    base = _ref_points(1, 31)[0]
+    nw = 8
+    rows = k.mb.comb_table(_port(base), nw, "cpu")
+    assert tuple(rows.shape) == (nw * 9, 12)
+    got = k.cbn.decode_rows(rows)
+    expect = [base ** (m * 16 ** (nw - 1 - w)) if m else RefPoint.identity
+              for w in range(nw) for m in range(9)]
+    assert [_affine(p) for p in got] == [_affine(p) for p in expect]
+    assert all(int(p.z) == (0 if i % 9 == 0 else 1)
+               for i, p in enumerate(got))
+
+
 def test_comb_of_identity_base(k):
     got = k.mb.batch_exp_comb(BNPoint.identity, _scalars(5, 9))
     assert all(repr(p) == repr(BNPoint.identity) for p in got)

@@ -13,7 +13,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 PORT = ROOT / "verifiable_mpc_tpu_torch"
-SCRIPTS = ("chip_smoke.py", "chip_profile.py")
+SCRIPTS = ("chip_smoke.py", "chip_profile.py", "chip_variants.py")
 _FORBIDDEN = re.compile(
     r"verifiable_mpc_tpu\.|^\s*import jax|^\s*from jax", re.MULTILINE
 )

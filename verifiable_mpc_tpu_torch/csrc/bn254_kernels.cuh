@@ -15,9 +15,10 @@
 // Data formats (all little-endian):
 //   input row    12 x u64: X, Y, Z, four u64 limbs each, jacobian, each
 //                coordinate canonical in standard form: the rows of
-//                native._bn_pts_to_u64 (ops/curve_bn.py).  K7 and K8
-//                first turn them into working rows (bn_encode_kernel),
-//                K5 into its table (bn_table_kernel).
+//                native._bn_pts_to_u64 (ops/curve_bn.py).  K7 first
+//                turns them into working rows (bn_encode_kernel), K8
+//                into affine working rows (bn_encode_affine_one), K5
+//                into its table (bn_table_kernel).
 //   working row  12 x u64: X, Y, Z, projective, each coordinate canonical
 //                in Montgomery form (K5's accumulators, K6's input)
 //   K5 table     working rows [n][8]: each point's multiples 1..8
@@ -116,6 +117,38 @@ FE_FN void g1_add(g1p &r, const g1p &p, const g1p &q) {
   fp_add(r.Z, u, v);
 }
 
+// RCB15 Algorithm 8, a = 0: r = p + (qx, qy) for an affine q (Z = 1, not
+// the identity), 11 M + 2 m_b3 (additions).  r may alias p.
+FE_FN void g1_madd(g1p &r, const g1p &p, const fp &qx, const fp &qy) {
+  fp t0, t1, t2, t3, t4, u, z3, a, b;
+  fp_mul(t0, p.X, qx);
+  fp_mul(t1, p.Y, qy);
+  fp_add(t3, qx, qy);
+  fp_add(t4, p.X, p.Y);
+  fp_mul(t3, t3, t4);
+  fp_add(t4, t0, t1);
+  fp_sub(t3, t3, t4);  // x1 y2 + x2 y1
+  fp_mul(t4, qy, p.Z);
+  fp_add(t4, t4, p.Y);  // y1 + y2 z1
+  fp_mul(u, qx, p.Z);
+  fp_add(u, u, p.X);  // x1 + x2 z1
+  fp_add(t2, t0, t0);
+  fp_add(t0, t2, t0);  // 3 x1 x2
+  fp_mul_b3(t2, p.Z);  // b3 z1
+  fp_add(z3, t1, t2);
+  fp_sub(t1, t1, t2);
+  fp_mul_b3(u, u);  // y3 = b3 (x1 + x2 z1)
+  fp_mul(a, t4, u);
+  fp_mul(b, t3, t1);
+  fp_sub(r.X, b, a);
+  fp_mul(a, u, t0);
+  fp_mul(b, t1, z3);
+  fp_add(r.Y, b, a);
+  fp_mul(a, t0, t3);
+  fp_mul(b, z3, t4);
+  fp_add(r.Z, b, a);
+}
+
 // RCB15 Algorithm 9, a = 0 (bn_dbl_lm): 6 M + 2 S + 1 m_b3 (additions)
 FE_FN void g1_dbl(g1p &r, const g1p &p) {
   fp t0, t1, t2, x3, y3, z3, u;
@@ -144,27 +177,106 @@ FE_FN void g1_dbl(g1p &r, const g1p &p) {
 // -(X, Y, Z) = (X, -Y, Z)
 FE_FN void g1_neg(g1p &p) { fp_neg(p.Y, p.Y); }
 
-// the normalized standard-form row of p: (x, y, 1), or (1, 1, 0) for the
-// identity (whose Z is 0: it takes no part in the inversion)
-FE_FN void g1_store_normalized(uint64_t *row, const g1p &p) {
-  fp x, y, one;
+// the identity's result row: (1, 1, 0) in standard form
+FE_FN void g1_store_identity_row(uint64_t *row) {
+  fp one, zero;
+  fp_zero(zero);
   fp_zero(one);
   one.v[0] = 1;
-  if (fp_is_zero(p.Z)) {
-    fp_zero(x);
-    fp_store(row, one);
-    fp_store(row + 4, one);
-    fp_store(row + 8, x);
-    return;
-  }
-  fp zi_m, zi;
-  fp_inv(zi_m, p.Z);      // Z^-1 R
-  fp_from_mont(zi, zi_m);  // Z^-1
-  fp_mul(x, p.X, zi);      // X R Z^-1 R^-1 = x, standard form
-  fp_mul(y, p.Y, zi);
+  fp_store(row, one);
+  fp_store(row + 4, one);
+  fp_store(row + 8, zero);
+}
+
+// the result row (x, y, 1), standard form, of the working point (X : Y : Z)
+// given zi = Z^-1 in standard form: x = X zi R^-1 with X in Montgomery form
+FE_FN void g1_store_affine_row(uint64_t *row, const fp &X, const fp &Y,
+                               const fp &zi) {
+  fp x, y, one;
+  fp_mul(x, X, zi);
+  fp_mul(y, Y, zi);
+  fp_zero(one);
+  one.v[0] = 1;
   fp_store(row, x);
   fp_store(row + 4, y);
   fp_store(row + 8, one);
+}
+
+// the normalized standard-form row of p: (x, y, 1), or (1, 1, 0) for the
+// identity (whose Z is 0: it takes no part in the inversion)
+FE_FN void g1_store_normalized(uint64_t *row, const g1p &p) {
+  if (fp_is_zero(p.Z)) {
+    g1_store_identity_row(row);
+    return;
+  }
+  fp zi_m, zi;
+  fp_inv(zi_m, p.Z);       // Z^-1 R
+  fp_from_mont(zi, zi_m);  // Z^-1
+  g1_store_affine_row(row, p.X, p.Y, zi);
+}
+
+// Montgomery's trick over one thread's group of result rows: rows i = g,
+// g + G, g + 2G, ... < n of out hold working rows (projective, Montgomery
+// form) and leave as their normalized result rows, with one inversion for
+// the group; pre [n][4] is scratch for the running products of the Z's.
+// An identity (Z = 0) enters the product as 1 and leaves as exactly
+// (1, 1, 0); a group of identities inverts 1.  Per row 3 products, Z^-1
+// out of Montgomery form, x and y: 6 products.
+FE_FN void bn_normalize_group(uint64_t *out, uint64_t *pre, int n, int g,
+                              int G) {
+  fp c, z;
+  fp_one_mont(c);
+  int last = -1;
+  for (int i = g; i < n; i += G) {
+    fp_load(z, out + (size_t)i * 12 + 8);
+    if (!fp_is_zero(z)) fp_mul(c, c, z);
+    fp_store(pre + (size_t)i * 4, c);  // Z_g ... Z_i
+    last = i;
+  }
+  fp inv;
+  fp_inv(inv, c);  // (Z_g ... Z_last)^-1 R
+  for (int i = last; i >= g; i -= G) {
+    uint64_t *row = out + (size_t)i * 12;
+    fp_load(z, row + 8);
+    if (fp_is_zero(z)) {
+      g1_store_identity_row(row);
+      continue;
+    }
+    fp zi, X, Y, t;
+    if (i - G >= g) {
+      fp_load(t, pre + (size_t)(i - G) * 4);
+      fp_mul(zi, inv, t);  // Z_i^-1 R
+    } else {
+      zi = inv;
+    }
+    fp_mul(t, inv, z);  // (Z_g ... Z_{i-G})^-1 R
+    inv = t;
+    fp_from_mont(t, zi);
+    fp_load(X, row);
+    fp_load(Y, row + 4);
+    g1_store_affine_row(row, X, Y, t);
+  }
+}
+
+// K8's first launch, for one table row: input row -> the working row of
+// its affine form (x R : y R : R), or (0 : R : 0) for the identity.  The
+// C++ tier's comb tables are affine already (no inversion); a row with
+// another Z costs one inversion.
+FE_FN void bn_encode_affine_one(const uint64_t *in_row, uint64_t *out_row) {
+  g1p p;
+  fp one;
+  g1_load_jacobian(p, in_row);
+  fp_one_mont(one);
+  if (!fp_is_zero(p.Z) && !fp_equal(p.Z, one)) {
+    fp zi, t;
+    fp_inv(zi, p.Z);
+    fp_mul(t, p.X, zi);
+    p.X = t;
+    fp_mul(t, p.Y, zi);
+    p.Y = t;
+    p.Z = one;
+  }
+  g1_store(out_row, p);
 }
 
 // K5's first launch, for one point: its input row -> the working rows of
@@ -259,31 +371,36 @@ FE_FN void bn_fold_norm_one(const uint64_t *gl_row, const uint64_t *gr_row,
 }
 
 // K8 body (B5's BN instance, msm_pallas._make_bexp_comb_kernel):
-// out_i = sum_w T[w][d_w(e_i)], one select and one add per window, no
-// doublings; table row w*9 + m (a working row) holds m * 16^(nw-1-w) *
-// base.
-FE_FN void bn_comb_norm_one(const uint64_t *table, const uint8_t *digits,
-                            int n, int nw, int i, uint64_t *out_row) {
-  g1p acc;
-  g1_identity(acc);
-  for (int w = 0; w < nw; w++) {
-    int d = digit_at(digits, n, w, i);
-    if (d == 0) continue;
-    g1p sel, t;
-    g1_load(sel, table + (size_t)(w * 9 + (d < 0 ? -d : d)) * 12);
-    if (d < 0) g1_neg(sel);
-    g1_add(t, acc, sel);
-    acc = t;
+// base^e_i for the exponents i = g, g + G, g + 2G, ... < n of one thread,
+// each out_i = sum_w T[w][d_w(e_i)]: the first window's entry, then one
+// select and at most one mixed add per window, no doublings.  Table row
+// w*9 + m (a working row of bn_encode_affine_one) holds m * 16^(nw-1-w) *
+// base; for a base of prime order every row but m = 0 is affine, and an
+// identity base makes every row the identity (row 1 tells).  The sums go
+// to their out rows as working rows, then leave normalized by one
+// inversion for the group (bn_normalize_group, pre its scratch).
+FE_FN void bn_comb_group(const uint64_t *table, const uint8_t *digits,
+                         int n, int nw, int g, int G, uint64_t *pre,
+                         uint64_t *out) {
+  fp z;
+  fp_load(z, table + 12 + 8);
+  int windows = fp_is_zero(z) ? 1 : nw;  // an identity base: no adds
+  for (int i = g; i < n; i += G) {
+    g1p acc;
+    int d = digit_at(digits, n, 0, i);
+    g1_load(acc, table + (size_t)(d < 0 ? -d : d) * 12);
+    if (d < 0) g1_neg(acc);
+    for (int w = 1; w < windows; w++) {
+      d = digit_at(digits, n, w, i);
+      if (d == 0) continue;
+      const uint64_t *row = table + (size_t)(w * 9 + (d < 0 ? -d : d)) * 12;
+      fp qx, qy;
+      fp_load(qx, row);
+      fp_load(qy, row + 4);
+      if (d < 0) fp_neg(qy, qy);
+      g1_madd(acc, acc, qx, qy);
+    }
+    g1_store(out + (size_t)i * 12, acc);
   }
-  g1_store_normalized(out_row, acc);
+  bn_normalize_group(out, pre, n, g, G);
 }
-
-#if defined(__CUDACC__)
-// The first launch of K7 and K8: n input rows -> working rows, one thread
-// per row (each source holds its own copy).
-static __global__ void bn_encode_kernel(const uint64_t *in, uint64_t *out,
-                                        long long n) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) bn_encode_one(in + i * 12, out + i * 12);
-}
-#endif

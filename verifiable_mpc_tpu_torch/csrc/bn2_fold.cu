@@ -18,6 +18,13 @@
 #include "bn2_kernels.cuh"
 #include "launch.cuh"
 
+// n input rows -> working rows, one thread per row
+__global__ void bn2_encode_kernel(const uint64_t *in, uint64_t *out,
+                                  long long n) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) bn2_encode_one(in + i * BN2_ROW, out + i * BN2_ROW);
+}
+
 struct Bn2Digits64 {
   uint8_t d[64];
 };

@@ -122,6 +122,41 @@ FE_FN void g2_add(g2p &r, const g2p &p, const g2p &q) {
   fp2_add(r.Z, a, b);
 }
 
+// RCB15 Algorithm 8, a = 0: r = p + (qx, qy) for an affine q (Z = 1, not
+// the identity), 11 GF(p^2) products and 2 by 3b' (39 base-field
+// products, against the full add's 42).  r may alias p.
+FE_FN void g2_madd(g2p &r, const g2p &p, const fp2 &qx, const fp2 &qy) {
+  fp2 t0, t1, t2, t3, t4, u;
+  fp2_mul(t0, p.X, qx);
+  fp2_mul(t1, p.Y, qy);
+  fp2_add(t3, qx, qy);
+  fp2_add(t4, p.X, p.Y);
+  fp2_mul(t3, t3, t4);
+  fp2_add(t4, t0, t1);
+  fp2_sub(t3, t3, t4);  // x1 y2 + x2 y1
+  fp2_mul(t4, qy, p.Z);
+  fp2_add(t4, t4, p.Y);  // y1 + y2 z1
+  fp2_mul(u, qx, p.Z);
+  fp2_add(u, u, p.X);  // x1 + x2 z1
+  fp2_add(t2, t0, t0);
+  fp2_add(t0, t2, t0);  // 3 x1 x2
+  fp2_mul_b3(t2, p.Z);  // 3b' z1
+  fp2 z3;
+  fp2_add(z3, t1, t2);
+  fp2_sub(t1, t1, t2);
+  fp2_mul_b3(u, u);  // y3 = 3b' (x1 + x2 z1)
+  fp2 a, b;
+  fp2_mul(a, t4, u);
+  fp2_mul(b, t3, t1);
+  fp2_sub(r.X, b, a);
+  fp2_mul(a, u, t0);
+  fp2_mul(b, t1, z3);
+  fp2_add(r.Y, b, a);
+  fp2_mul(a, t0, t3);
+  fp2_mul(b, z3, t4);
+  fp2_add(r.Z, b, a);
+}
+
 // RCB15 Algorithm 9, a = 0 (bn2_dbl_lm).  r may alias p.
 FE_FN void g2_dbl(g2p &r, const g2p &p) {
   fp2 t0, t1, t2, xy, x3, y3, z3;
@@ -149,33 +184,109 @@ FE_FN void g2_dbl(g2p &r, const g2p &p) {
 // -(X, Y, Z) = (X, -Y, Z)
 FE_FN void g2_neg(g2p &p) { fp2_neg(p.Y, p.Y); }
 
-// the normalized standard-form row of p: (x, y, 1), or (1, 1, 0) for the
-// identity (whose Z is 0: it takes no part in the inversion)
-FE_FN void g2_store_normalized(uint64_t *row, const g2p &p) {
-  fp2 one, x, y;
+// the identity's result row: (1, 1, 0) in standard form
+FE_FN void g2_store_identity_row(uint64_t *row) {
+  fp2 one, zero;
+  fp2_zero(zero);
   fp2_zero(one);
   one.c0.v[0] = 1;
-  if (fp2_is_zero(p.Z)) {
-    fp2_zero(x);
-    fp2_store(row, one);
-    fp2_store(row + 8, one);
-    fp2_store(row + 16, x);
-    return;
-  }
-  fp2 zi;
-  fp2_inv(zi, p.Z);        // Z^-1 R
-  fp2_from_mont(zi, zi);   // Z^-1
-  fp2_mul(x, p.X, zi);     // X R Z^-1 R^-1 = x, standard form
-  fp2_mul(y, p.Y, zi);
+  fp2_store(row, one);
+  fp2_store(row + 8, one);
+  fp2_store(row + 16, zero);
+}
+
+// the result row (x, y, 1), standard form, of the working point (X : Y : Z)
+// given zi = Z^-1 in standard form: x = X zi R^-1 with X in Montgomery form
+FE_FN void g2_store_affine_row(uint64_t *row, const fp2 &X, const fp2 &Y,
+                               const fp2 &zi) {
+  fp2 x, y, one;
+  fp2_mul(x, X, zi);
+  fp2_mul(y, Y, zi);
+  fp2_zero(one);
+  one.c0.v[0] = 1;
   fp2_store(row, x);
   fp2_store(row + 8, y);
   fp2_store(row + 16, one);
+}
+
+// the normalized standard-form row of p: (x, y, 1), or (1, 1, 0) for the
+// identity (whose Z is 0: it takes no part in the inversion)
+FE_FN void g2_store_normalized(uint64_t *row, const g2p &p) {
+  if (fp2_is_zero(p.Z)) {
+    g2_store_identity_row(row);
+    return;
+  }
+  fp2 zi;
+  fp2_inv(zi, p.Z);       // Z^-1 R
+  fp2_from_mont(zi, zi);  // Z^-1
+  g2_store_affine_row(row, p.X, p.Y, zi);
+}
+
+// Montgomery's trick over one thread's group of result rows: rows i = g,
+// g + G, g + 2G, ... < n of out hold working rows (projective, Montgomery
+// form) and leave as their normalized result rows, with one GF(p^2)
+// inversion for the group; pre [n][8] is scratch for the running products
+// of the Z's.  An identity (Z = 0) enters the product as 1 and leaves as
+// exactly (1, 1, 0); a group of identities inverts 1.  Per row 3 GF(p^2)
+// products, Z^-1 out of Montgomery form, x and y: 17 base-field products.
+FE_FN void bn2_normalize_group(uint64_t *out, uint64_t *pre, int n, int g,
+                               int G) {
+  fp2 c, z;
+  fp2_one_mont(c);
+  int last = -1;
+  for (int i = g; i < n; i += G) {
+    fp2_load(z, out + (size_t)i * BN2_ROW + 16);
+    if (!fp2_is_zero(z)) fp2_mul(c, c, z);
+    fp2_store(pre + (size_t)i * 8, c);  // Z_g ... Z_i
+    last = i;
+  }
+  fp2 inv;
+  fp2_inv(inv, c);  // (Z_g ... Z_last)^-1 R
+  for (int i = last; i >= g; i -= G) {
+    uint64_t *row = out + (size_t)i * BN2_ROW;
+    fp2_load(z, row + 16);
+    if (fp2_is_zero(z)) {
+      g2_store_identity_row(row);
+      continue;
+    }
+    fp2 zi, X, Y;
+    if (i - G >= g) {
+      fp2_load(c, pre + (size_t)(i - G) * 8);
+      fp2_mul(zi, inv, c);  // Z_i^-1 R
+    } else {
+      zi = inv;
+    }
+    fp2_mul(inv, inv, z);  // (Z_g ... Z_{i-G})^-1 R
+    fp2_from_mont(zi, zi);
+    fp2_load(X, row);
+    fp2_load(Y, row + 8);
+    g2_store_affine_row(row, X, Y, zi);
+  }
 }
 
 // input row -> working row
 FE_FN void bn2_encode_one(const uint64_t *in_row, uint64_t *out_row) {
   g2p p;
   g2_load_jacobian(p, in_row);
+  g2_store(out_row, p);
+}
+
+// K11's first launch, for one table row: input row -> the working row of
+// its affine form (x R : y R : R), or (0 : R : 0) for the identity.  The
+// C++ tier's comb tables are affine already (no inversion); a row with
+// another Z costs one GF(p^2) inversion.
+FE_FN void bn2_encode_affine_one(const uint64_t *in_row, uint64_t *out_row) {
+  g2p p;
+  fp2 one;
+  g2_load_jacobian(p, in_row);
+  fp2_one_mont(one);
+  if (!fp2_is_zero(p.Z) && !fp2_equal(p.Z, one)) {
+    fp2 zi;
+    fp2_inv(zi, p.Z);
+    fp2_mul(p.X, p.X, zi);
+    fp2_mul(p.Y, p.Y, zi);
+    p.Z = one;
+  }
   g2_store(out_row, p);
 }
 
@@ -228,25 +339,40 @@ FE_FN void bn2_msm_horner_one(const uint64_t *wsum, uint64_t *out_row,
   g2_store_normalized(out_row, h);
 }
 
-// K11 body (B4's BN2 instance, msm_pallas._make_bexp_kernel):
-// base^e_i by a signed-window Horner ladder, 4 doublings and one add of
-// +-T[|d|] per window; tbl [9][24] holds the working rows of the base's
-// multiples 0..8 (shared memory in the kernel).  The result leaves
-// normalized.
-FE_FN void bn2_bexp_one(const uint64_t *tbl, const uint8_t *digits, int n,
-                        int nw, int i, uint64_t *out_row) {
-  g2p acc;
-  g2_identity(acc);
-  for (int w = 0; w < nw; w++) {
-    for (int k = 0; k < 4; k++) g2_dbl(acc, acc);
-    int d = digit_at(digits, n, w, i);
-    if (d == 0) continue;
-    g2p q;
-    g2_load(q, tbl + (size_t)(d < 0 ? -d : d) * BN2_ROW);
-    if (d < 0) g2_neg(q);
-    g2_add(acc, acc, q);
+// K11 body (B4's BN2 instance, msm_pallas._make_bexp_kernel, redesigned
+// as a fixed-base comb): base^e_i for the exponents i = g, g + G, g + 2G,
+// ... < n of one thread.  Each is the sum over the windows of
+// +-T[w][|d_w(e_i)|]: the first window's entry, then one table read and at
+// most one mixed add per window, no doubling.  Table row w*9 + m (a
+// working row of bn2_encode_affine_one) holds
+// m * 16^(nw-1-w) * base; for a base of prime order every row but m = 0 is
+// affine, and an identity base makes every row the identity (row 1 tells).
+// The sums go to their out rows as working rows, then leave normalized by
+// one inversion for the group (bn2_normalize_group, pre its scratch).
+FE_FN void bn2_bexp_group(const uint64_t *tbl, const uint8_t *digits, int n,
+                          int nw, int g, int G, uint64_t *pre,
+                          uint64_t *out) {
+  fp2 z;
+  fp2_load(z, tbl + BN2_ROW + 16);
+  int windows = fp2_is_zero(z) ? 1 : nw;  // an identity base: no adds
+  for (int i = g; i < n; i += G) {
+    g2p acc;
+    int d = digit_at(digits, n, 0, i);
+    g2_load(acc, tbl + (size_t)(d < 0 ? -d : d) * BN2_ROW);
+    if (d < 0) g2_neg(acc);
+    for (int w = 1; w < windows; w++) {
+      d = digit_at(digits, n, w, i);
+      if (d == 0) continue;
+      const uint64_t *row = tbl + (size_t)(w * 9 + (d < 0 ? -d : d)) * BN2_ROW;
+      fp2 qx, qy;
+      fp2_load(qx, row);
+      fp2_load(qy, row + 8);
+      if (d < 0) fp2_neg(qy, qy);
+      g2_madd(acc, acc, qx, qy);
+    }
+    g2_store(out + (size_t)i * BN2_ROW, acc);
   }
-  g2_store_normalized(out_row, acc);
+  bn2_normalize_group(out, pre, n, g, G);
 }
 
 // K12 body (B3's BN2 instance, msm_pallas._make_fold_kernel): gl^c * gr
@@ -271,13 +397,3 @@ FE_FN void bn2_fold_norm_one(const uint64_t *gl_row, const uint64_t *gr_row,
   g2_add(acc, acc, r);
   g2_store_normalized(out_row, acc);
 }
-
-#if defined(__CUDACC__)
-// n input rows -> working rows, one thread per row (K11's table, K12's
-// operands; each source holds its own copy)
-static __global__ void bn2_encode_kernel(const uint64_t *in, uint64_t *out,
-                                         long long n) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) bn2_encode_one(in + i * BN2_ROW, out + i * BN2_ROW);
-}
-#endif

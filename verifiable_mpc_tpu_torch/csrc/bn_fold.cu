@@ -16,6 +16,13 @@
 #include "bn254_kernels.cuh"
 #include "launch.cuh"
 
+// n input rows -> working rows, one thread per row
+__global__ void bn_encode_kernel(const uint64_t *in, uint64_t *out,
+                                 long long n) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) bn_encode_one(in + i * 12, out + i * 12);
+}
+
 struct BnDigits64 {
   uint8_t d[64];
 };

@@ -67,6 +67,12 @@ FE_FN bool fp_is_zero(const fp &a) {
   return o == 0;
 }
 
+FE_FN bool fp_equal(const fp &a, const fp &b) {
+  uint32_t o = 0;
+  for (int i = 0; i < 8; i++) o |= a.v[i] ^ b.v[i];
+  return o == 0;
+}
+
 // four little-endian u64 limbs <-> eight u32 limbs
 FE_FN void fp_load(fp &r, const uint64_t *s) {
   for (int i = 0; i < 4; i++) {

@@ -40,6 +40,10 @@ FE_FN bool fp2_is_zero(const fp2 &a) {
   return fp_is_zero(a.c0) && fp_is_zero(a.c1);
 }
 
+FE_FN bool fp2_equal(const fp2 &a, const fp2 &b) {
+  return fp_equal(a.c0, b.c0) && fp_equal(a.c1, b.c1);
+}
+
 // eight little-endian u64 limbs (c0 then c1) <-> a value
 FE_FN void fp2_load(fp2 &r, const uint64_t *s) {
   fp_load(r.c0, s);

@@ -237,12 +237,15 @@ void host_bn_fold_norm(const uint64_t *gl, const uint64_t *gr,
                      cdig, nw, out + (size_t)i * 12);
 }
 
-// K8: table [nw*9][12] input rows, work [nw*9][12]
+// K8 with G threads: table [nw*9][12] input rows, work [nw*9][12],
+// pre [n][4], out [n][12]
 void host_bn_comb_norm(const uint64_t *table, uint64_t *work,
-                       const uint8_t *digits, int n, int nw, uint64_t *out) {
-  host_bn_encode(table, work, nw * 9);
-  for (int i = 0; i < n; i++)
-    bn_comb_norm_one(work, digits, n, nw, i, out + (size_t)i * 12);
+                       const uint8_t *digits, int n, int nw, int G,
+                       uint64_t *pre, uint64_t *out) {
+  for (int r = 0; r < nw * 9; r++)
+    bn_encode_affine_one(table + (size_t)r * 12, work + (size_t)r * 12);
+  for (int g = 0; g < G; g++)
+    bn_comb_group(work, digits, n, nw, g, G, pre, out);
 }
 
 // BN field ops on single canonical values (4 u64 limbs each)
@@ -314,12 +317,16 @@ void host_bn2_msm(const uint64_t *pts, uint64_t *tbl, const uint8_t *digits,
   bn2_msm_horner_one(wsum, out, nw);
 }
 
-// K11: table [9][24] input rows, work [9][24]
+// K11 with G threads: table [nw*9][24] input rows, work [nw*9][24],
+// pre [n][8], out [n][24]
 void host_bn2_bexp(const uint64_t *table, uint64_t *work,
-                   const uint8_t *digits, int n, int nw, uint64_t *out) {
-  host_bn2_encode(table, work, 9);
-  for (int i = 0; i < n; i++)
-    bn2_bexp_one(work, digits, n, nw, i, out + (size_t)i * BN2_ROW);
+                   const uint8_t *digits, int n, int nw, int G,
+                   uint64_t *pre, uint64_t *out) {
+  for (int r = 0; r < nw * 9; r++)
+    bn2_encode_affine_one(table + (size_t)r * BN2_ROW,
+                          work + (size_t)r * BN2_ROW);
+  for (int g = 0; g < G; g++)
+    bn2_bexp_group(work, digits, n, nw, g, G, pre, out);
 }
 
 // K12: gl, gr [n][24] input rows, work [2n][24]

@@ -93,6 +93,8 @@ def load():
     lib.vmpc_bn_scalar_mul.argtypes = [u64p, u64p, u64p]
     lib.vmpc_bn2_msm.argtypes = [u64p, u64p, ctypes.c_uint64, u64p]
     lib.vmpc_bn2_batch_exp.argtypes = [u64p, u64p, ctypes.c_uint64, u64p]
+    lib.vmpc_bn_comb_table.argtypes = [u64p, ctypes.c_int, u64p]
+    lib.vmpc_bn2_comb_table.argtypes = [u64p, ctypes.c_int, u64p]
     lib.vmpc_ntt_poly_mul.argtypes = [
         u64p,
         ctypes.c_uint64,
@@ -405,6 +407,27 @@ def bn2_batch_exp(base, exponents):
     out = np.zeros((len(exponents), 24), dtype=np.uint64)
     lib.vmpc_bn2_batch_exp(_u64p(b), _u64p(ex), len(exponents), _u64p(out))
     return _u64_to_bn2_pts(out)
+
+
+def bn_comb_table(base, nw: int) -> np.ndarray:
+    """[nw*9, 12] rows of the G1 fixed-base comb table, most significant
+    window first: row w*9 + m = m * 16^(nw-1-w) * base, affine (z = 1),
+    the identity all zero."""
+    lib = load()
+    b = np.ascontiguousarray(_bn_pts_to_u64([base]))
+    out = np.zeros((nw * 9, 12), dtype=np.uint64)
+    lib.vmpc_bn_comb_table(_u64p(b), nw, _u64p(out))
+    return out
+
+
+def bn2_comb_table(base, nw: int) -> np.ndarray:
+    """[nw*9, 24] rows of the twist's fixed-base comb table, as
+    :func:`bn_comb_table`."""
+    lib = load()
+    b = np.ascontiguousarray(_bn2_pts_to_u64([base]))
+    out = np.zeros((nw * 9, 24), dtype=np.uint64)
+    lib.vmpc_bn2_comb_table(_u64p(b), nw, _u64p(out))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -715,6 +715,43 @@ static void batch_exp(const u64 *base, const u64 *exps, u64 n, u64 *out) {
   }
 }
 
+// Fixed-base comb table, most significant window first: entry w*9 + m
+// holds m * 16^(nw-1-w) * base (m = 0..8, entry m = 0 the identity), as
+// affine rows (z = 1; the identity all zero).  4 (nw - 1) doublings, 7 nw
+// adds and one batch inversion.
+template <typename F>
+static void comb_table(const u64 *base, int nw, u64 *out) {
+  const int words = 3 * Ops<F>::words;
+  std::vector<Pt<F>> pts((size_t)nw * 9);
+  Pt<F> cur;
+  load_pt(cur, base);
+  for (int k = 0; k < nw; k++) {  // cur = 16^k base: window nw-1-k
+    pts[(size_t)(nw - 1 - k) * 9 + 1] = cur;
+    for (int d = 0; d < 4 && k + 1 < nw; d++) {
+      Pt<F> t;
+      pt_double(t, cur);
+      cur = t;
+    }
+  }
+#pragma omp parallel for schedule(static)
+  for (int w = 0; w < nw; w++) {
+    Pt<F> *row = &pts[(size_t)w * 9];
+    pt_identity(row[0]);
+    for (int j = 2; j <= 8; j++) pt_add(row[j], row[j - 1], row[1]);
+  }
+  std::vector<APt<F>> aff;
+  std::vector<char> inf;
+  pts_to_affine(pts, aff, inf);
+  for (size_t i = 0; i < pts.size(); i++) {
+    Pt<F> p;
+    if (inf[i])
+      pt_identity(p);
+    else
+      pt_from_affine(p, aff[i]);
+    store_pt(out + i * words, p);
+  }
+}
+
 }  // namespace bn
 
 extern "C" {
@@ -742,6 +779,16 @@ void vmpc_bn2_msm(const u64 *points, const u64 *scalars, u64 n, u64 *out) {
 
 void vmpc_bn2_batch_exp(const u64 *base, const u64 *exps, u64 n, u64 *out) {
   bn::batch_exp<bn::Fp2>(base, exps, n, out);
+}
+
+// comb tables: base 12 (G1) or 24 (twist) u64, out nw*9 affine rows of as
+// many (the input rows of K8 and K11)
+void vmpc_bn_comb_table(const u64 *base, int nw, u64 *out) {
+  bn::comb_table<bn::Fp>(base, nw, out);
+}
+
+void vmpc_bn2_comb_table(const u64 *base, int nw, u64 *out) {
+  bn::comb_table<bn::Fp2>(base, nw, out);
 }
 
 }  // extern "C"

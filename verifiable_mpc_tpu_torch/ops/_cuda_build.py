@@ -72,11 +72,14 @@ def lib():
                                             vp]
         so.vmpc_cu_bn_msm_tail.argtypes = [vp, vp, vp, ci, ci, ci, vp]
         so.vmpc_cu_bn_fold_norm.argtypes = [vp, vp, vp, vp, ci, vp, ci, vp]
-        so.vmpc_cu_bn_comb_norm.argtypes = [vp, vp, vp, ci, ci, vp, vp]
+        so.vmpc_cu_bn_comb_norm.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp,
+                                            vp]
+        so.vmpc_cu_bn_comb_resident.argtypes = []
         so.vmpc_cu_bn2_msm_accum.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
                                              vp]
         so.vmpc_cu_bn2_msm_tail.argtypes = [vp, vp, vp, ci, ci, ci, vp]
-        so.vmpc_cu_bn2_bexp.argtypes = [vp, vp, vp, ci, ci, vp, vp]
+        so.vmpc_cu_bn2_bexp.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp, vp]
+        so.vmpc_cu_bn2_bexp_resident.argtypes = []
         so.vmpc_cu_bn2_fold_norm.argtypes = [vp, vp, vp, vp, ci, vp, ci, vp]
         so.vmpc_cu_bucket_accum.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci,
                                             ci, ci, ci, ci, vp]
@@ -100,7 +103,9 @@ def lib():
                    so.vmpc_cu_probe_vpu, so.vmpc_cu_probe_field,
                    so.vmpc_cu_probe_chain, so.vmpc_cu_probe_raw,
                    so.vmpc_cu_probe_vpu_resident,
-                   so.vmpc_cu_probe_carrychain_resident):
+                   so.vmpc_cu_probe_carrychain_resident,
+                   so.vmpc_cu_bn_comb_resident,
+                   so.vmpc_cu_bn2_bexp_resident):
             fn.restype = ci
         _lib = so
     return _lib

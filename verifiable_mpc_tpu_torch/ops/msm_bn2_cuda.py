@@ -7,12 +7,12 @@ curve-generic kernels of ``ops/msm_pallas.py`` with the twist adapter.  The
 device work is four kernels hand-written in CUDA (``csrc/bn2_*.cu``, one
 source each, over ``csrc/fp2_254.cuh`` and ``csrc/bn2_kernels.cuh``):
 
-=====  ======================  =========================================
+=====  ======================  ===========================================
 K9     bn2_msm_accumulate      4-bit signed-window accumulation (B1, BN2)
 K10    bn2_msm_tail            window reduction + Horner + normalize (B2)
-K11    bn2_bexp                shared-base signed-window ladder (B4, BN2)
+K11    bn2_bexp                fixed-base comb + batch normalize (B4, BN2)
 K12    bn2_fold                g_l^c * g_r + normalize (B3, BN2)
-=====  ======================  =========================================
+=====  ======================  ===========================================
 
 Each wrapper (:func:`msm_rows`, :func:`bexp_rows`, :func:`fold_rows`)
 launches its kernels for a CUDA tensor and counts the launch in
@@ -24,10 +24,12 @@ raises.
 Points travel as ``[n, 24]`` int64 input rows (``ops/curve_bn2.py``):
 jacobian, standard form, as ``native._bn2_pts_to_u64`` gives them.  K9, K11
 and K12 turn them into working rows (projective, Montgomery form) in a
-first launch, and every result leaves the kernels normalized in standard
-form, the identity as exactly ``BNTwistPoint.identity``'s (1, 1, 0), which
-is an input row again.  Scalars are recoded against the BN group order
-(``bn256.ORDER``), with the -8 digit guard of ``msm_cuda``'s recoding.
+first launch (K11 the rows of its comb table, which the C++ tier builds
+and :func:`bexp_table` caches per base), and every result leaves the
+kernels normalized in standard form, the identity as exactly
+``BNTwistPoint.identity``'s (1, 1, 0), which is an input row again.
+Scalars are recoded against the BN group order (``bn256.ORDER``), with the
+-8 digit guard of ``msm_cuda``'s recoding.
 """
 
 from __future__ import annotations
@@ -104,29 +106,40 @@ def msm_rows(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
 
 
 def bexp_rows(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
-    """base^e_i for a shared base: table [9, 24] input rows (row m = m *
-    base), digits [nw/2, n] packed signed windows of the exponents ->
-    [n, 24] normalized rows.  CUDA: K11; CPU: :func:`bexp_plain`."""
+    """base^e_i for a shared base by its fixed-base comb: table [nw*9, 24]
+    input rows (row w*9 + m = m * 16^(nw-1-w) * base, :func:`bexp_table`),
+    digits [nw/2, n] packed signed windows of the exponents -> [n, 24]
+    normalized rows.  CUDA: K11; CPU: :func:`bexp_plain`."""
     mc._check_rows(table, "table", 2, ROW)
-    if table.shape[0] != TABLE_S:
-        raise ValueError(f"batch-exp table of {table.shape[0]} rows, not "
-                         f"{TABLE_S}")
-    mc._check_digits(digits, "digits", (digits.shape[0], digits.shape[-1]))
-    nw = 2 * digits.shape[0]
-    if not 0 < nw <= mc.NWINDOWS or not digits.shape[1]:
-        raise ValueError(f"window count {nw} / {digits.shape[1]} exponents")
+    nw = table.shape[0] // TABLE_S
+    if nw * TABLE_S != table.shape[0] or nw % 2 or not 0 < nw <= mc.NWINDOWS:
+        raise ValueError(f"comb table of {table.shape[0]} rows")
+    mc._check_digits(digits, "digits", (nw // 2, digits.shape[-1]))
+    if not digits.shape[1]:
+        raise ValueError("no exponents")
     if mc._same_device(table, digits).type == "cpu":
         return bexp_plain(table, digits)
     from . import _cuda_build as cb
 
     n = digits.shape[1]
     work = torch.empty_like(table)
+    pre = torch.empty((n, 8), dtype=torch.int64, device=table.device)
     out = torch.empty((n, ROW), dtype=torch.int64, device=table.device)
     cb.check(cb.lib().vmpc_cu_bn2_bexp(
         table.data_ptr(), work.data_ptr(), digits.data_ptr(), n, nw,
-        out.data_ptr(), mc._stream(table)), "bn2_bexp")
+        bexp_threads(n, table.device), pre.data_ptr(), out.data_ptr(),
+        mc._stream(table)), "bn2_bexp")
     mc.LAUNCHES["bn2_bexp"] += 1
     return out
+
+
+def bexp_threads(n: int, dev: torch.device) -> int:
+    """K11's thread count G for n exponents: one wave
+    (``msm_cuda.one_wave``); thread g sums the exponents g, g + G, g + 2G,
+    ... and normalizes them with one inversion."""
+    from . import _cuda_build as cb
+
+    return mc.one_wave(n, cb.lib().vmpc_cu_bn2_bexp_resident(), dev)
 
 
 def fold_rows(gl: torch.Tensor, gr: torch.Tensor,
@@ -219,26 +232,9 @@ def msm_plain(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
 
 
 def bexp_plain(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
-    """Plain version of K11: the table's working rows, then per exponent
-    4 doublings and an add of +-T[|d|] per window, normalize (in blocks of
-    exponents)."""
-    tbl = cb2.split_rows(cb2.encode_jacobian_rows(table))  # 3 x [9, 32]
-    nw = 2 * digits.shape[0]
-    n = digits.shape[1]
-    d = mc.unpack_digits(digits)  # [nw, n]
-    step = max(1, mc._PLAIN_BLOCK // nw)
-    out = []
-    for i0 in range(0, n, step):
-        db = d[:, i0 : i0 + step]
-        acc = cb2.identity((db.shape[1],), table.device)
-        for w in range(nw):
-            for _ in range(mc.WINDOW):
-                acc = cb2.dbl(acc)
-            sel = cb2.neg_where(db[w] < 0,
-                                tuple(c[db[w].abs()] for c in tbl))
-            acc = cb2.add(acc, sel)
-        out.append(cb2.normalize_rows(acc))
-    return torch.cat(out, dim=0)
+    """Plain version of K11: the comb of ``msm_cuda.bn_comb_plain`` over the
+    twist."""
+    return mc.bn_comb_plain(table, digits, cb2)
 
 
 def fold_plain(gl: torch.Tensor, gr: torch.Tensor,
@@ -294,18 +290,22 @@ def fold(g_l, g_r, c: int) -> list:
     return cb2.decode_rows(out)
 
 
-def bexp_table(base, device=None) -> torch.Tensor:
-    """[9, 24] input rows of m * base for m = 0..8, built on the host (7
-    group operations, as ``_batch_exp_generic`` builds its table)."""
-    pts = [BNTwistPoint.identity, base]
-    for _ in range(2, TABLE_S):
-        pts.append(pts[-1] * base)
-    return cb2.encode_points(pts, mc.current_device(device))
+_COMB_TABLES = {}  # (repr of the normalized base, nw, device) -> table
+
+
+def bexp_table(base, nw: int, device=None) -> torch.Tensor:
+    """[nw*9, 24] input rows of the base's comb table, row w*9 + m = m *
+    16^(nw-1-w) * base, affine, built by the C++ tier (4 (nw - 1)
+    doublings, 7 nw adds, one batch inversion) and cached per base."""
+    from .. import native
+
+    return mc.bn_comb_table(_COMB_TABLES, base, nw, device,
+                            native.bn2_comb_table)
 
 
 def batch_exp(base, exponents) -> list:
     """[base ** e for e in exponents] (normalized) through K11."""
     dev = mc.current_device()
-    pk, _nw = _digits(exponents)
-    out = bexp_rows(bexp_table(base), torch.from_numpy(pk).to(dev))
+    pk, nw = _digits(exponents)
+    out = bexp_rows(bexp_table(base, nw), torch.from_numpy(pk).to(dev))
     return cb2.decode_rows(out)

@@ -10,7 +10,7 @@ hand-written in CUDA (``csrc/bn_*.cu``, one source each, over
 K5     bn_msm_accumulate      4-bit signed-window accumulation (B1, BN)
 K6     bn_msm_tail            window reduction + Horner + normalize (B2)
 K7     bn_fold                g_l^c * g_r + normalize (B3, BN)
-K8     bn_comb                fixed-base comb + normalize (B5, BN)
+K8     bn_comb                fixed-base comb + batch normalize (B5, BN)
 =====  =====================  ==========================================
 
 Each wrapper (:func:`msm_rows`, :func:`fold_rows`, :func:`comb_rows`)
@@ -136,8 +136,8 @@ def fold_rows(gl: torch.Tensor, gr: torch.Tensor,
 
 def comb_rows(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
     """Fixed-base comb: table [nw*9, 12] input rows (row w*9+m = m *
-    16^(nw-1-w) * base), digits [nw/2, n] packed -> [n, 12] normalized
-    rows.  CUDA: K8; CPU: :func:`comb_plain`."""
+    16^(nw-1-w) * base, :func:`comb_table`), digits [nw/2, n] packed ->
+    [n, 12] normalized rows.  CUDA: K8; CPU: :func:`comb_plain`."""
     mc._check_rows(table, "table", 2, ROW)
     nw = table.shape[0] // TABLE_S
     if nw * TABLE_S != table.shape[0] or nw % 2 or not 0 < nw <= mc.NWINDOWS:
@@ -149,12 +149,23 @@ def comb_rows(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
 
     n = digits.shape[1]
     work = torch.empty_like(table)
+    pre = torch.empty((n, 4), dtype=torch.int64, device=table.device)
     out = torch.empty((n, ROW), dtype=torch.int64, device=table.device)
     cb.check(cb.lib().vmpc_cu_bn_comb_norm(
         table.data_ptr(), work.data_ptr(), digits.data_ptr(), n, nw,
-        out.data_ptr(), mc._stream(table)), "bn_comb")
+        comb_threads(n, table.device), pre.data_ptr(), out.data_ptr(),
+        mc._stream(table)), "bn_comb")
     mc.LAUNCHES["bn_comb"] += 1
     return out
+
+
+def comb_threads(n: int, dev: torch.device) -> int:
+    """K8's thread count G for n exponents: one wave
+    (``msm_cuda.one_wave``); thread g sums the exponents g, g + G, g + 2G,
+    ... and normalizes them with one inversion."""
+    from . import _cuda_build as cb
+
+    return mc.one_wave(n, cb.lib().vmpc_cu_bn_comb_resident(), dev)
 
 
 # ---------------------------------------------------------------------------
@@ -240,23 +251,9 @@ def fold_plain(gl: torch.Tensor, gr: torch.Tensor,
 
 
 def comb_plain(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
-    """Plain version of K8: the table's working rows, select T[w][d_w(e_i)]
-    for every window, negate for d < 0, sum over the windows, normalize (in
-    blocks of exponents)."""
-    table = cbn.encode_jacobian_rows(table)
-    nw = 2 * digits.shape[0]
-    n = digits.shape[1]
-    d = mc.unpack_digits(digits)  # [nw, n]
-    base = torch.arange(nw, device=d.device)[:, None] * TABLE_S
-    step = max(1, mc._PLAIN_BLOCK // nw)
-    out = []
-    for i0 in range(0, n, step):
-        db = d[:, i0 : i0 + step]
-        m = db.shape[1]
-        rows = table[(base + db.abs()).reshape(-1)].reshape(nw, m, ROW)
-        sel = cbn.neg_where(db < 0, cbn.split_rows(rows))
-        out.append(cbn.normalize_rows(mc._tree_sum(sel, 0, cbn)))
-    return torch.cat(out, dim=0)
+    """Plain version of K8: the comb of ``msm_cuda.bn_comb_plain`` over
+    G1."""
+    return mc.bn_comb_plain(table, digits, cbn)
 
 
 # ---------------------------------------------------------------------------
@@ -296,30 +293,14 @@ def fold(g_l, g_r, c: int) -> list:
 _COMB_TABLES = {}  # (repr of the normalized base, nw, device) -> table
 
 
-def _comb_table_build(base, nw: int) -> list:
-    """Points MSB-first, row w holding d * (16^(nw-1-w) * base) for d =
-    0..8 (~nw * 8 host group operations, cached per base)."""
-    rows = []
-    base_w = base
-    for _ in range(nw):
-        row = [BNPoint.identity, base_w]
-        for _m in range(2, TABLE_S):
-            row.append(row[-1] * base_w)
-        rows.append(row)
-        eight = row[TABLE_S - 1]
-        base_w = eight * eight  # 16 * base_w
-    rows.reverse()
-    return [pt for row in rows for pt in row]
-
-
 def comb_table(base, nw: int, device=None) -> torch.Tensor:
-    device = mc.current_device(device)
-    key = (repr(base.normalize()), nw, str(device))
-    hit = _COMB_TABLES.get(key)
-    if hit is None:
-        hit = _COMB_TABLES[key] = cbn.encode_points(
-            _comb_table_build(base, nw), device)
-    return hit
+    """[nw*9, 12] input rows of the base's comb table, row w*9 + m = m *
+    16^(nw-1-w) * base, affine, built by the C++ tier (4 (nw - 1)
+    doublings, 7 nw adds, one batch inversion) and cached per base."""
+    from .. import native
+
+    return mc.bn_comb_table(_COMB_TABLES, base, nw, device,
+                            native.bn_comb_table)
 
 
 def batch_exp_comb(base, exponents) -> list:

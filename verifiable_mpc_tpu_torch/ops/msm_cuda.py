@@ -235,6 +235,16 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def one_wave(n: int, per_sm: int, dev: torch.device) -> int:
+    """min(n, the threads of a kernel that holds ``per_sm`` threads on an
+    SM, on every SM of the card): a grid that runs in one wave.  ``per_sm``
+    is an occupancy query's result; a value <= 0 is a CUDA error."""
+    if per_sm <= 0:
+        raise RuntimeError(f"occupancy query failed: error {-per_sm}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return min(n, per_sm * sms)
+
+
 def _check_rows(t: torch.Tensor, name: str, dims: int, width: int = 16):
     if t.dtype != torch.int64 or t.dim() != dims or t.shape[-1] != width:
         raise ValueError(f"{name}: expected int64 [..., {width}] rows of "
@@ -430,6 +440,41 @@ def _horner(sums, nw: int, law=ced, bits: int = WINDOW):
 
 
 _PLAIN_BLOCK = 1 << 20  # (point, window) pairs a plain step holds at once
+
+
+def bn_comb_plain(table: torch.Tensor, digits: torch.Tensor,
+                  law) -> torch.Tensor:
+    """The plain fixed-base comb over a BN curve (``law``: ``curve_bn`` for
+    K8, ``curve_bn2`` for K11): the table's working rows, select
+    T[w][|d_w(e_i)|] for every window, negate for d < 0, sum over the
+    windows, normalize (in blocks of exponents)."""
+    table = law.encode_jacobian_rows(table)
+    nw = 2 * digits.shape[0]
+    n = digits.shape[1]
+    d = unpack_digits(digits)  # [nw, n]
+    base = torch.arange(nw, device=d.device)[:, None] * TABLE_S
+    step = max(1, _PLAIN_BLOCK // nw)
+    out = []
+    for i0 in range(0, n, step):
+        db = d[:, i0 : i0 + step]
+        m = db.shape[1]
+        rows = table[(base + db.abs()).reshape(-1)].reshape(nw, m, law.ROW)
+        sel = law.neg_where(db < 0, law.split_rows(rows))
+        out.append(law.normalize_rows(_tree_sum(sel, 0, law)))
+    return torch.cat(out, dim=0)
+
+
+def bn_comb_table(cache: dict, base, nw: int, device, build) -> torch.Tensor:
+    """The comb table of ``base`` for ``nw`` windows on ``device``: from
+    ``cache`` (keyed by the normalized base, nw and device), else the u64
+    rows ``build(base, nw)`` gives (a C++ tier function), kept there."""
+    device = current_device(device)
+    key = (repr(base.normalize()), nw, str(device))
+    hit = cache.get(key)
+    if hit is None:
+        hit = cache[key] = torch.from_numpy(
+            build(base, nw).view(np.int64)).to(device)
+    return hit
 
 
 def msm_accumulate_plain(points: torch.Tensor, digits: torch.Tensor,
