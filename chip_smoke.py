@@ -10,8 +10,8 @@ Phases (each one fatal; any failure exits non-zero and prints no result):
 1. the card's name and power limit (nvidia-smi);
 2. build the kernels (nvcc, ptxas's registers per thread of every kernel,
    and one line with the registers, stack, spills and shared memory of the
-   two launches each of K1, K5, K8 and K11) and the C++ host tier (g++),
-   with their seconds;
+   two launches each of K1, K5, K6, K8 and K11 and of K3's) and the C++
+   host tier (g++), with their seconds;
 3. hold every kernel against its plain PyTorch version on the same inputs
    on the card: K1 + K2 (MSM), K3 (fold), K4 (comb) over Ed25519 and
    K5 + K6 (MSM), K7 (fold), K8 (comb) over BN256 G1 at n in {1, 300,
@@ -23,10 +23,15 @@ Phases (each one fatal; any failure exits non-zero and prints no result):
    the path's 2^17 against the C++ tier; and K13 + K14 (the bucket MSM;
    native.ed_msm), K15 (batch-exp; native.ed_batch_exp and the comb) and
    K16 (the Montgomery-limb add; the host law) with edge scalars, digits
-   128 and -128, identities and points with Z != 1; then each kernel
-   alone at the shapes its path gives it, timed with CUDA events beside
-   its plain version and its bound; the tolerance is exact equality of
-   canonical values;
+   128 and -128, identities and points with Z != 1; K3 also at the
+   challenges 0, 1, 8, 9, l - 1 and one with runs of zero windows (every n
+   of these below its thread count G, 2^17 a ragged 2.6 G, and there too
+   against the C++ tier), K6 also on accumulators made here at B in {1, 3},
+   nw in {2, 8, 64}, S not a multiple of its chunk count R and a window
+   whose accumulators are all the identity (against the C++ tier's MSM of
+   them by 16^(nw-1-w)); then each kernel alone at the shapes its path
+   gives it, timed with CUDA events beside its plain version and its
+   bound; the tolerance is exact equality of canonical values;
 4. the Ed25519 MSM at 2^16 against the port's C++ tier
    (native.ed_msm_arr); the BN MSM and comb at 2^16 against native.bn_msm /
    bn_batch_exp, and both at the BN tier's threshold sizes; the twist MSM
@@ -41,7 +46,8 @@ Phases (each one fatal; any failure exits non-zero and prints no result):
 6. the Ed25519 flagship: enable_gpu(), a 2^16-multiplication chain
    circuit, create_generators, circuit_sat_prover, circuit_sat_verifier;
    the kernel launch counts are zeroed just before and read just after,
-   and every kernel of that path and the resident engine must have run;
+   and every kernel of that path and the resident engine must have run,
+   K3 FLAGSHIP_FOLDS times in the prove and as many in the verify;
 7. parity at 2^12 multiplications: the generators made on the card (K4)
    and by enable_native() under one seed are equal once normalized; the
    GPU prove and the enable_native() prove under one seed give identical
@@ -57,7 +63,8 @@ Phases (each one fatal; any failure exits non-zero and prints no result):
 8. the BN256 path: Pinocchio at 2^16 multiplications with enable_gpu()
    (SparseQAP, generate_keys_fast, calculate_witness, compute_proof_fast,
    verify), seconds and launches per stage, K8 and the twist's K11 in the
-   key generation and K5 + K6 and the twist's K9 + K10 in the prove; at
+   key generation and K5 + K6 (K6 PINOCCHIO_TAILS times) and the twist's
+   K9 + K10 in the prove; at
    2^10, with the BN and twist thresholds lowered so that K5, K6 and
    K8-K11 serve every call, the enable_gpu() and enable_native()
    evaluation keys (twist entries included) and proofs equal once
@@ -120,11 +127,14 @@ CUTOVER_HALVES = tuple(1 << k for k in range(7, 15))
 BUCKET_SWEEP_LOG2 = (12, 14, 16, 17, 18)
 BUCKET_PARITY_MIN_BATCH = 512  # the bucket serves the 2^12 prove's MSMs
 MONT_ADD_SHAPE = 1 << 17
+FLAGSHIP_FOLDS = 8  # K3's rounds above the engine's cut-over at 2^16
+PINOCCHIO_TAILS = 7  # the G1 MSMs of a Pinocchio prove on the card
 
 # field multiplies (squarings included) of the group operations in
 # verifiable_mpc_tpu_torch/csrc/fe25519.cuh, for the bounds
 ADD, ADD_PRE, DBL, TO_PRE = 9, 8, 8, 1
 INV = 265  # one Fermat inversion: 254 squarings and 11 multiplies
+DBL_NO_T = 7  # a doubling whose T nothing reads (K3)
 NORM_EACH = 6  # per point of a batch: Montgomery batch inversion's 3,
 #                then x = X/Z, y = Y/Z and t = x*y
 
@@ -372,16 +382,18 @@ def ptxas_usage(text: str) -> dict:
     return {k: tuple(v) for k, v in out.items() if len(v) == 5}
 
 
-# the launches of K1, K5, K8 and K11 (each kernel's first launch, then its
-# second)
+# the launches of K1, K3, K5, K6, K8 and K11 (each kernel's first launch,
+# then its second)
 USAGE_KERNELS = (("K1", ("msm_table_kernel", "msm_accum_kernel")),
+                 ("K3", ("fold_norm_kernel",)),
                  ("K5", ("bn_table_kernel", "bn_msm_accum_kernel")),
+                 ("K6", ("bn_msm_reduce_kernel", "bn_msm_combine_kernel")),
                  ("K8", ("bn_encode_affine_kernel", "bn_comb_norm_kernel")),
                  ("K11", ("bn2_encode_affine_kernel", "bn2_bexp_kernel")))
 
 
 def log_accum_usage(usage: dict):
-    """The ptxas line of the two launches each of K1, K5, K8 and K11."""
+    """The ptxas line of the launches of K1, K3, K5, K6, K8 and K11."""
     parts = []
     for label, keys in USAGE_KERNELS:
         for key in keys:
@@ -452,6 +464,13 @@ def edge_scalars(ell: int):
     return [0, 1, ell // 2 - 1, ell // 2, ell // 2 + 1, ell - 2, ell - 1]
 
 
+def fold_challenges(ell: int) -> list:
+    """K3's edge challenges: 0, 1, 8 (one nonzero NAF digit), 9, l - 1,
+    and one with runs of zeros (the nibble 7 in every third 4-bit window
+    from window 20, least significant first)."""
+    return [0, 1, 8, 9, ell - 1, sum(7 << (4 * w) for w in range(20, 63, 3))]
+
+
 def comb_exponents(n: int, G: int, rng, order: int) -> list:
     """n exponents for a comb kernel (K8, K11) that runs G threads: the edge
     scalars (0 among them), then random ones; exponent 0 also at index 1
@@ -487,6 +506,9 @@ def check_small(torch, native, mc, ced, rng):
     from verifiable_mpc_tpu_torch.groups.edwards import ELL, EdwardsPoint
 
     dev = torch.device(DEV)
+    G3 = mc.fold_threads(1 << 30, dev)
+    assert max(CHECK_SIZES) < G3, "K3's check sizes are not below its G"
+    log(f"   K3 runs G = {G3} threads at most: one element a thread below")
     for n in CHECK_SIZES:
         rows = random_points(native, n, rng)
         sc = (edge_scalars(ELL) + [rng.randrange(ELL) for _ in range(n)])[:n]
@@ -502,17 +524,18 @@ def check_small(torch, native, mc, ced, rng):
         assert np.array_equal(ced.to_rows(got), host_n), f"K1+K2 != C++ n={n}"
 
         gr = random_points(native, n, rng)
-        c = rng.randrange(ELL)
-        cdig = mc.scalar_digits([c])[:, 0]
         gl_t, gr_t = pts, ced.from_reference_rows(gr, dev)
-        got = mc.fold_rows(gl_t, gr_t, cdig)
-        plain = mc.fold_plain(gl_t, gr_t, cdig.astype(np.uint8))
-        host = native.ed_fold_arr(np.ascontiguousarray(rows),
-                                  np.ascontiguousarray(gr),
-                                  native._ints_to_u64x4([c], ELL))
-        native.ed_batch_normalize_arr(host)
-        assert torch.equal(got, plain), f"K3 != plain at n={n}"
-        assert np.array_equal(ced.to_rows(got), host), f"K3 != C++ n={n}"
+        for c in fold_challenges(ELL) + [rng.randrange(ELL)]:
+            cdig = mc.fold_digits(c)
+            got = mc.fold_rows(gl_t, gr_t, cdig)
+            plain = mc.fold_plain(gl_t, gr_t, cdig)
+            host = native.ed_fold_arr(np.ascontiguousarray(rows),
+                                      np.ascontiguousarray(gr),
+                                      native._ints_to_u64x4([c], ELL))
+            native.ed_batch_normalize_arr(host)
+            assert torch.equal(got, plain), f"K3 != plain at n={n}, c={c}"
+            assert np.array_equal(ced.to_rows(got), host), \
+                f"K3 != C++ at n={n}, c={c}"
 
         base = EdwardsPoint.generator ** rng.randrange(1, ELL)
         table = mc.comb_table(base, nw, dev)
@@ -523,8 +546,8 @@ def check_small(torch, native, mc, ced, rng):
         assert torch.equal(got, plain), f"K4 != plain at n={n}"
         assert np.array_equal(ced.to_rows(got), host), f"K4 != C++ n={n}"
         torch.cuda.synchronize()
-        log(f"   n={n}: K1+K2, K3, K4 equal their plain versions and the "
-            "C++ tier")
+        log(f"   n={n}: K1+K2, K3 (at the edge challenges too), K4 equal "
+            "their plain versions and the C++ tier")
 
 
 def msm_accumulate_muls(d) -> int:
@@ -589,30 +612,55 @@ def check_main_shapes(torch, native, mc, ced, rng, g_half: int, n_comb: int):
         shape=f"B=2 nw={nw} S={S}", bytes=k2_bytes, muls=k2_muls,
     )
 
-    # K3: the round-0 fold of the same generator vector
+    # K3: the round-0 fold of the same generator vector, also against the
+    # C++ tier (2^17 is a ragged 2.6 groups of K3's thread count)
     c = rng.randrange(ELL)
-    cdig = mc.scalar_digits([c])[:, 0]
+    cdig = mc.fold_digits(c)
     gl, gr = g[:g_half], g[g_half:]
     got = mc.fold_rows(gl, gr, cdig)
-    plain = mc.fold_plain(gl, gr, cdig.astype(np.uint8))
+    plain = mc.fold_plain(gl, gr, cdig)
     k3_err = max_abs_err(torch, got, plain)
     assert k3_err == 0.0, "K3 differs from the plain version"
-    # per element: the table 1..max digit of c, 4 doublings per window
-    # after c's first nonzero one, a mixed add per nonzero digit, the add
-    # of g_r and its share of the batch normalization
-    nzc = int((cdig != 0).sum())
-    first = int(np.flatnonzero(cdig)[0])
+    host = native.ed_fold_arr(np.ascontiguousarray(rows[:g_half]),
+                              np.ascontiguousarray(rows[g_half:]),
+                              native._ints_to_u64x4([c], ELL))
+    native.ed_batch_normalize_arr(host)
+    assert np.array_equal(ced.to_rows(got), host), "K3 != C++ at the shape"
+    G3 = mc.fold_threads(g_half, dev)
+    log(f"   K3 at n={g_half}: {G3} threads, normalization groups of "
+        f"{g_half // G3}-{-(-g_half // G3)} elements (n mod G = "
+        f"{g_half % G3})")
+    # per element: the table of odd multiples 1..max |digit| of c (2 g_l
+    # and the adds), from c's first nonzero NAF digit on a doubling a digit
+    # (T only before an add, or after the last digit), a mixed add per
+    # nonzero digit after the first (the first is the start, 1 product for
+    # its T), the add of g_r and its share of the batch normalization
+    nz = np.flatnonzero(cdig)
+    first, top = int(nz[0]), int(np.abs(cdig.astype(np.int16)).max())
+    later = cdig[first + 1:]
+    with_t = int((later != 0).sum()) + int(later.size > 0 and later[-1] == 0)
     k3_muls = g_half * (
-        TO_PRE + (int(cdig.max()) - 1) * (ADD_PRE + TO_PRE)
-        + (len(cdig) - 1 - first) * 4 * DBL + nzc * ADD_PRE + ADD + NORM_EACH
+        2 * TO_PRE + DBL + (top - 1) // 2 * (ADD_PRE + TO_PRE) + 1
+        + later.size * DBL_NO_T + with_t * (DBL - DBL_NO_T)
+        + int((later != 0).sum()) * ADD_PRE + ADD + NORM_EACH
     ) + INV
+    old_dig = mc.scalar_digits([c])[:, 0]
+    old_first = int(np.flatnonzero(old_dig)[0])
+    old_muls = g_half * (
+        TO_PRE + (int(old_dig.max()) - 1) * (ADD_PRE + TO_PRE)
+        + (len(old_dig) - 1 - old_first) * 4 * DBL
+        + int((old_dig != 0).sum()) * ADD_PRE + ADD + NORM_EACH) + INV
     k3_bytes = 3 * g_half * 128
+    log(f"   K3's bound recounted to a width-5 NAF and doublings without T: "
+        f"{k3_muls / g_half:.1f} field products an element, "
+        f"{bound(torch, k3_bytes, k3_muls)[0]:.4f} ms (unsigned digits and "
+        f"full doublings, as counted before: {old_muls / g_half:.1f}, "
+        f"{bound(torch, k3_bytes, old_muls)[0]:.4f} ms)")
     stats["fold"] = dict(
         err=k3_err,
         ms=cuda_ms(torch, lambda: mc.fold_rows(gl, gr, cdig)),
-        plain_ms=cuda_ms(torch, lambda: mc.fold_plain(
-            gl, gr, cdig.astype(np.uint8)), reps=1),
-        shape=f"n={g_half} nw=64", bytes=k3_bytes, muls=k3_muls,
+        plain_ms=cuda_ms(torch, lambda: mc.fold_plain(gl, gr, cdig), reps=1),
+        shape=f"n={g_half} digits={len(cdig)}", bytes=k3_bytes, muls=k3_muls,
     )
 
     # K4: create_generators' comb over n_comb full-size exponents
@@ -696,7 +744,7 @@ def cutover(torch, native, mc, ced, rng):
             d2 = torch.from_numpy(
                 np.stack([pk[:, :half], pk[:, half:]])).to(DEV)
             ab = mc.msm_rows(torch.stack([g[half:], g[:half]]), d2)
-            nxt = mc.fold_rows(g[:half], g[half:], mc.scalar_digits([c])[:, 0])
+            nxt = mc.fold_rows(g[:half], g[half:], mc.fold_digits(c))
             return ced.to_rows(ab), ced.to_rows(nxt)
 
         def cpu_round():
@@ -779,6 +827,8 @@ def flagship(torch, vm, mc, built, bk=None):
     log(f"   verification {ver}; engine runs {runs}; launches {launches}")
     assert verified(ver), f"flagship proof did not verify: {ver}"
     assert runs > 0, "the resident GPU engine never ran"
+    folds = (per_stage["prove"]["fold"], per_stage["verify"]["fold"])
+    assert folds == (FLAGSHIP_FOLDS,) * 2, f"K3 launches {folds}"
     missing = [k for k in ED_KERNELS if launches[k] == 0]
     if bk is not None:
         missing += [k for k in BUCKET_KERNELS if per_stage["prove"][k] == 0]
@@ -1222,6 +1272,43 @@ def check_small_bn(torch, native, mc, mb, cbn, rng):
         torch.cuda.synchronize()
         log(f"   n={n}: K5+K6, K7, K8 (also with an identity base) equal "
             "their plain versions and the C++ tier")
+
+
+# K6's cases on accumulators made here: (B, nw, S, the window whose
+# accumulators are all the identity or None); the chunk counts R at these
+# shapes are 4, 3, 4, 2 and 1, so S = 2050, 4095 and 1501 are no multiple
+TAIL_CASES = ((1, 64, 4096, 5), (3, 64, 2050, 0), (1, 64, 4095, None),
+              (1, 8, 1501, 7), (3, 2, 5, None))
+
+
+def check_tail_bn(torch, native, mb, cbn, rng):
+    """K6 alone on accumulators made from 4,096 points (one in 64 the
+    identity, gathered at random) at TAIL_CASES: against msm_tail_plain and
+    the C++ tier's MSM of the same points by 16^(nw-1-w)."""
+    from verifiable_mpc_tpu_torch.groups.bn256 import ORDER
+
+    dev = torch.device(DEV)
+    pts = bn_points(native, 4096, rng, identity_at=tuple(range(3, 4096, 64)))
+    work = cbn.encode_jacobian_rows(cbn.encode_points(pts, dev))
+    for B, nw, S, ident in TAIL_CASES:
+        idx = np.array([rng.randrange(4096) for _ in range(B * nw * S)])
+        if ident is not None:
+            idx.reshape(B, nw, S)[:, ident] = 3  # an identity
+        acc = work[torch.from_numpy(idx).to(dev)].reshape(B, nw, S, 12)
+        got = mb.msm_tail(acc)
+        assert torch.equal(got, mb.msm_tail_plain(acc)), \
+            f"K6 != plain at B={B} nw={nw} S={S}"
+        sc = [16 ** (nw - 1 - w) % ORDER for w in range(nw)
+              for _ in range(S)]
+        host = bn_host_rows(native, [
+            native.bn_msm([pts[i] for i in idx[b * nw * S:(b + 1) * nw * S]],
+                          sc) for b in range(B)])
+        assert np.array_equal(cbn.to_rows(got), host), \
+            f"K6 != C++ at B={B} nw={nw} S={S}"
+        R = mb.tail_split(S)
+        log(f"   K6 at B={B} nw={nw} S={S} (R={R}, S mod R = {S % R}"
+            + (f", window {ident} all identities" if ident is not None
+               else "") + "): equals its plain version and the C++ tier")
 
 
 def check_main_shapes_bn(torch, native, mc, mb, cbn, rng, n: int):
@@ -1687,6 +1774,8 @@ def pinocchio(torch, vm, mc):
     for k in ("bn_msm_accumulate", "bn_msm_tail", "bn2_msm_accumulate",
               "bn2_msm_tail"):
         assert per_stage["prove"][k] > 0, f"{k} never ran in the prove"
+    tails = per_stage["prove"]["bn_msm_tail"]
+    assert tails == PINOCCHIO_TAILS, f"K6 launched {tails} times"
     return launches
 
 
@@ -2069,6 +2158,7 @@ def main() -> int:
     with Phase("kernels against their plain versions, small n"):
         check_small(torch, native, mc, ced, rng)
         check_small_bn(torch, native, mc, mb, cbn, rng)
+        check_tail_bn(torch, native, mb, cbn, rng)
         check_small_bn2(torch, native, mc, mb2, cb2, rng)
         check_small_new(torch, native, mc, bk, ced, add, lm, rng)
     g_half = 1 << (FLAGSHIP_LOG2_MULS + 1)  # round 0 of a 2^18 vector

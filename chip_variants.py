@@ -1,22 +1,30 @@
 #!/usr/bin/env python3
-"""Design variants of the comb kernels K8 and K11, timed on the card
+"""Design variants of the kernels K3, K6, K8 and K11, timed on the card
 against the committed kernels on the same inputs.
 
-    python3 chip_variants.py [--log2 17] [--reps 3]
+    python3 chip_variants.py [--log2 17] [--reps 3] [--only NAME ...]
+                             [--parent DIR]
 
-A variant is a committed kernel source (``csrc/bn2_bexp.cu`` or
-``csrc/bn_comb.cu``) with the few text edits listed in ``VARIANTS``, built
-alone with nvcc into a library of its own (under the kernels' build
-directory).  The committed kernel's wrapper then runs with the variant's
-entry points in place of the committed ones, on the same exponents (the
-Pinocchio path's 2^17 by default, the twist generator's or the G1
-generator's comb table); every variant's rows must equal the committed
-kernel's, and the two are timed in turns (committed, variant, variant,
-committed; CUDA events, best of ``--reps`` each).  The sources keep one
-design each; the alternatives that were measured against it live only here.
-Prints the card line, ptxas's lines of the variants, one line per variant
-and, last, one JSON object with the times.  Imports neither jax nor the JAX
-package, and fails without a card.
+A variant is a committed kernel source (``csrc/fold.cu``,
+``csrc/bn_msm_tail.cu``, ``csrc/bn2_bexp.cu`` or ``csrc/bn_comb.cu``) with
+the few text edits listed in ``VARIANTS`` (a function's body copied from
+its header and edited counts as one), built alone with nvcc into a library
+of its own (under the kernels' build directory).  The committed kernel's
+wrapper then runs with the variant's entry points in place of the
+committed ones, on the same inputs: 2^log2 elements for K3 (the
+flagship's round 0 at the default), K6's accumulators at B = 1, nw = 64,
+S = 4096 (the Pinocchio path's MSM tail), 2^log2 exponents for K8 and K11
+(the Pinocchio path's, the G1 or the twist generator's comb table).  The
+variants in ``SPLITS`` run the committed K6 with another chunk count R a
+window.  Every variant's rows must equal the committed kernel's, and the
+two are timed in turns (committed, variant, variant, committed; CUDA
+events, best of ``--reps`` each).  The sources keep one design each; the
+alternatives that were measured against it live only here.  Prints the
+card line, ptxas's lines of the variants, one line per variant and, last,
+one JSON object with the times.  With ``--parent DIR`` it also times K3
+and K6 of this checkout against those of the checkout at DIR (an earlier
+commit, unpacked there), each in a process of its own, in turns.  Imports
+neither jax nor the JAX package, and fails without a card.
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ import random
 import sys
 
 import chip_smoke as smoke
+
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 INCLUDES = '#include "launch.cuh"\n'
 K11_SMEM_BYTES = "(size_t)64 * 9 * BN2_ROW * sizeof(uint64_t)"
@@ -152,6 +162,307 @@ def per_exponent(encode: str) -> tuple:
             f"  cudaStream_t s = (cudaStream_t)stream;\n  G = n;\n  {encode}")
 
 
+def body_copy(header: str, fn: str, name: str, edits) -> str:
+    """The function ``fn`` of csrc/``header``, renamed ``name``, with the
+    text edits (old, new) applied (each anchor must occur in it).  Read
+    from this checkout's sources without importing its package, which
+    ``--kernel-times`` may take from another checkout."""
+    with open(os.path.join(HERE, "verifiable_mpc_tpu_torch", "csrc",
+                           header)) as f:
+        text = f.read()
+    start = text.index(f"FE_FN void {fn}(")
+    body = text[start:text.index("\n}\n", start) + 3]
+    body = body.replace(f"FE_FN void {fn}(", f"FE_FN void {name}(")
+    for old, new in edits:
+        if old not in body:
+            raise RuntimeError(f"{fn}: no {old[:50]!r}")
+        body = body.replace(old, new)
+    return body
+
+
+# c (4 x u64, below 2^253) <- its nd NAF digits (most significant first):
+# the host side of the K3 variants that recode c themselves
+K3_REBUILD = """
+static void naf_value(const int8_t *cdig, int nd, uint64_t *c) {
+  for (int j = 0; j < 4; j++) c[j] = 0;
+  for (int b = 0; b < nd; b++) {
+    for (int j = 3; j > 0; j--) c[j] = (c[j] << 1) | (c[j - 1] >> 63);
+    c[0] <<= 1;
+    int64_t d = cdig[b];
+    unsigned __int128 carry = 0;
+    for (int j = 0; j < 4; j++) {
+      uint64_t add = j ? (d < 0 ? ~0ull : 0) : (uint64_t)d;
+      carry += (unsigned __int128)c[j] + add;
+      c[j] = (uint64_t)carry;
+      carry >>= 64;
+    }
+  }
+}
+"""
+
+
+# K3 over signed radix-16 digits in [-7, 8] (about 60 adds, 4 doublings a
+# window) with the table of the multiples 1..8, the design first written
+# for this kernel; the entry point recodes c from the NAF digits
+K3_RADIX16 = INCLUDES + K3_REBUILD + """
+struct Digits64 {
+  int8_t d[64];
+};
+
+FE_FN void fold_group_radix16(const uint64_t *gl, const uint64_t *gr,
+                              const int8_t *cdig, int nw, int n, int g,
+                              int G, uint64_t *pre, uint64_t *out) {
+  int first = 0;
+  while (first < nw && cdig[first] == 0) first++;
+  for (int i = g; i < n; i += G) {
+    ge_ext acc;
+    if (first < nw) {
+      ge_pre tbl[8];
+      ge_ext p;
+      ge_load(p, gl + (size_t)i * 16);
+      ge_pre p1;
+      ge_to_pre(p1, p);
+      ge_multiples_pre(p, p1, p1, 8,
+                       [&](int k, const ge_pre &e) { tbl[k] = e; });
+      int d = cdig[first];
+      ge_pre q = tbl[(d < 0 ? -d : d) - 1];
+      if (d < 0) ge_pre_neg(q);
+      ge_pre_to_ext(acc, q);
+      for (int w = first + 1; w < nw; w++) {
+        for (int k = 0; k < 3; k++) ge_dbl_no_t(acc, acc);
+        d = cdig[w];
+        if (d != 0 || w == nw - 1) {
+          ge_dbl(acc, acc);
+        } else {
+          ge_dbl_no_t(acc, acc);
+        }
+        if (d != 0) {
+          ge_ext t;
+          ge_add_pre_signed(t, acc, tbl[(d < 0 ? -d : d) - 1], d < 0);
+          acc = t;
+        }
+      }
+    } else {
+      ge_identity(acc);
+    }
+    ge_ext r, sum;
+    ge_load(r, gr + (size_t)i * 16);
+    ge_add(sum, acc, r);
+    ge_store(out + (size_t)i * 16, sum);
+  }
+  ed_normalize_group(out, pre, n, g, G);
+}
+
+__global__ void fold_radix16_kernel(const uint64_t *gl, const uint64_t *gr,
+                                    Digits64 c, int n, int G, uint64_t *pre,
+                                    uint64_t *out) {
+  int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g < G) fold_group_radix16(gl, gr, c.d, 64, n, g, G, pre, out);
+}
+"""
+
+
+def k3_radix16(text: str) -> str:
+    old = text[text.index("  FoldDigits c;\n"):text.index(
+        "  return (int)cudaGetLastError();\n}", text.index("FoldDigits c;"))]
+    new = """  uint64_t v[4];
+  naf_value(cdig, nd, v);
+  Digits64 c;
+  int carry = 0;
+  for (int w = 0; w < 64; w++) {  // least significant window first
+    int d = (int)((v[w >> 4] >> (4 * (w & 15))) & 15) + carry;
+    carry = d > 8;
+    c.d[63 - w] = (int8_t)(d - 16 * carry);
+  }
+  fold_radix16_kernel<<<blocks_for(G, K_THREADS), K_THREADS, 0,
+                        (cudaStream_t)stream>>>(gl, gr, c, n, G, pre, out);
+"""
+    return text.replace(INCLUDES, K3_RADIX16).replace(old, new)
+
+
+# K3 over a width-4 NAF (about 51 adds) with a table of the odd multiples
+# 1, 3, 5, 7 (512 bytes); the entry point recodes c from the width-5 NAF
+K3_WNAF4 = INCLUDES + K3_REBUILD + """
+FE_FN void fold_group_wnaf4(const uint64_t *gl, const uint64_t *gr,
+                            const int8_t *naf, int top, int n, int g, int G,
+                            uint64_t *pre, uint64_t *out) {
+  for (int i = g; i < n; i += G) {
+    ge_ext acc;
+    if (top >= 0) {
+      ge_pre tbl[4], p1, step, q;
+      ge_ext p, p2;
+      ge_load(p, gl + (size_t)i * 16);
+      ge_to_pre(p1, p);
+      ge_dbl(p2, p);
+      ge_to_pre(step, p2);
+      ge_multiples_pre(p, p1, step, 4,
+                       [&](int k, const ge_pre &e) { tbl[k] = e; });
+      int d = naf[top];
+      q = tbl[((d < 0 ? -d : d) - 1) >> 1];
+      if (d < 0) ge_pre_neg(q);
+      ge_pre_to_ext(acc, q);
+      for (int b = top - 1; b >= 0; b--) {
+        d = naf[b];
+        if (d != 0 || b == 0) {
+          ge_dbl(acc, acc);
+        } else {
+          ge_dbl_no_t(acc, acc);
+        }
+        if (d != 0) {
+          ge_ext t;
+          ge_add_pre_signed(t, acc, tbl[((d < 0 ? -d : d) - 1) >> 1], d < 0);
+          acc = t;
+        }
+      }
+    } else {
+      ge_identity(acc);
+    }
+    ge_ext r, sum;
+    ge_load(r, gr + (size_t)i * 16);
+    ge_add(sum, acc, r);
+    ge_store(out + (size_t)i * 16, sum);
+  }
+  ed_normalize_group(out, pre, n, g, G);
+}
+
+struct Naf256 {
+  int8_t d[256];
+};
+
+__global__ void fold_wnaf4_kernel(const uint64_t *gl, const uint64_t *gr,
+                                  Naf256 c, int top, int n, int G,
+                                  uint64_t *pre, uint64_t *out) {
+  int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g < G) fold_group_wnaf4(gl, gr, c.d, top, n, g, G, pre, out);
+}
+"""
+
+
+def k3_wnaf4(text: str) -> str:
+    old = text[text.index("  FoldDigits c;\n"):text.index(
+        "  return (int)cudaGetLastError();\n}", text.index("FoldDigits c;"))]
+    new = """  uint64_t v[4];
+  naf_value(cdig, nd, v);
+  Naf256 c;
+  int top = -1;
+  for (int b = 0; b < 256; b++) {  // least significant digit first
+    int d = 0;
+    if (v[0] & 1) {
+      d = (int)(v[0] & 15);
+      if (d >= 8) d -= 16;
+      unsigned __int128 br = 0;
+      for (int j = 0; j < 4; j++) {  // v -= d
+        uint64_t sub = j ? (d < 0 ? ~0ull : 0) : (uint64_t)(int64_t)d;
+        unsigned __int128 x = (unsigned __int128)v[j] - sub - br;
+        v[j] = (uint64_t)x;
+        br = (x >> 64) & 1;
+      }
+    }
+    c.d[b] = (int8_t)d;
+    if (d) top = b;
+    for (int j = 0; j < 3; j++) v[j] = (v[j] >> 1) | (v[j + 1] << 63);
+    v[3] >>= 1;
+  }
+  fold_wnaf4_kernel<<<blocks_for(G, K_THREADS), K_THREADS, 0,
+                      (cudaStream_t)stream>>>(gl, gr, c, top, n, G, pre, out);
+"""
+    return text.replace(INCLUDES, K3_WNAF4).replace(old, new)
+
+
+# K3's doublings all with T (8 products, as before the redesign)
+def k3_full_dbl():
+    return INCLUDES + body_copy(
+        "ed25519_kernels.cuh", "fold_group", "fold_group_full_dbl", [
+            ("        } else {\n          ge_dbl_no_t(acc, acc);\n",
+             "        } else {\n          ge_dbl(acc, acc);\n")])
+
+
+# K3 with a negated copy of a negative digit's entry (ge_pre_neg, then the
+# mixed add) in place of the signed add's operand picking
+def k3_neg_copy():
+    return INCLUDES + body_copy(
+        "ed25519_kernels.cuh", "fold_group", "fold_group_neg_copy", [
+            ("          ge_add_pre_signed(t, acc, tbl[((d < 0 ? -d : d) - 1) "
+             ">> 1], d < 0);\n",
+             "          q = tbl[((d < 0 ? -d : d) - 1) >> 1];\n"
+             "          if (d < 0) ge_pre_neg(q);\n"
+             "          ge_add_pre(t, acc, q);\n")])
+
+
+# K3's thread count G: the wrapper's one wave of FOLD_SM_THREADS (256) an
+# SM replaced by n threads of one element each (an inversion an element),
+# or by one wave of ``per_sm`` threads an SM (0: all that the registers
+# allow, 384)
+K3_PER_ELEMENT = ("  FoldDigits c;\n", "  FoldDigits c;\n  G = n;\n")
+
+
+def k3_wave(per_sm: int) -> tuple:
+    cap = ("blocks * K_THREADS" if not per_sm
+           else f"{per_sm}")
+    return ("  FoldDigits c;\n", f"""  FoldDigits c;
+  {{
+    int dev = 0, sms = 0, blocks = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fold_norm_kernel,
+                                                  K_THREADS, 0);
+    long long wave = (long long)({cap}) * sms;
+    G = wave < n ? (int)wave : n;
+  }}
+""")
+
+
+# K3 with the SM's L1/shared split set to the most L1 (its 1 KB tables a
+# thread live in local memory, cached there)
+K3_MAX_L1 = ("  FoldDigits c;\n",
+             "  cudaFuncSetAttribute(fold_norm_kernel, "
+             "cudaFuncAttributePreferredSharedMemoryCarveout, 0);\n"
+             "  FoldDigits c;\n")
+
+
+# K6's inversion by a sliding window over the bits of p - 2 (odd powers
+# a, a^3, ..., a^15: about 255 squarings and 57 multiplies, where the
+# square-and-multiply chain takes 255 and 124), renamed into every fp_inv
+# call of the BN bodies
+K6_INV_WINDOW = """#include "fp254.cuh"
+
+FE_FN void fp_inv_window(fp &r, const fp &a) {
+  const uint32_t e[8] = {0x5e089665u, 0x185cac6cu, 0x20b5b59eu, 0xee5b88d1u,
+                         0x6184dc21u, 0xaa6fecb8u, 0x4aa387f9u, 0x8fb501e3u};
+  fp odd[8], a2, acc;
+  odd[0] = a;
+  fp_sq(a2, a);
+  for (int k = 1; k < 8; k++) fp_mul(odd[k], odd[k - 1], a2);
+  bool started = false;
+  int i = 255;
+  while (i >= 0) {
+    if (!((e[i >> 5] >> (i & 31)) & 1)) {
+      if (started) fp_sq(acc, acc);
+      i--;
+      continue;
+    }
+    int j = i - 3 > 0 ? i - 3 : 0;
+    while (!((e[j >> 5] >> (j & 31)) & 1)) j++;
+    int val = 0;
+    for (int b = i; b >= j; b--) {
+      val = 2 * val + ((e[b >> 5] >> (b & 31)) & 1);
+      if (started) fp_sq(acc, acc);
+    }
+    if (started) {
+      fp_mul(acc, acc, odd[val >> 1]);
+    } else {
+      acc = odd[val >> 1];
+      started = true;
+    }
+    i = j - 1;
+  }
+  r = acc;
+}
+#define fp_inv fp_inv_window
+#include "bn254_kernels.cuh"
+"""
+
+
 # name -> (kernel, source, [(committed text, variant text), ...])
 VARIANTS = {
     # K11's table copied into shared memory (110.6 KB a block) instead of
@@ -182,7 +493,42 @@ VARIANTS = {
          "if (g < G) comb_group_full(table,")]),
     "k8_per_exponent": ("bn_comb", "bn_comb.cu", [
         per_exponent("bn_encode_affine_kernel")]),
+    # K3 over signed radix-16 digits (the multiples 1..8; also at all the
+    # threads its registers allow, as first written), over a width-4 NAF,
+    # with one inversion an element, with T in every doubling, with a
+    # negated copy of an entry, at 384 and 128 threads an SM, with the most
+    # L1
+    "k3_radix16": ("fold", "fold.cu", [k3_radix16]),
+    "k3_radix16_wave384": ("fold", "fold.cu", [k3_wave(0), k3_radix16]),
+    "k3_wnaf4": ("fold", "fold.cu", [k3_wnaf4]),
+    "k3_per_element": ("fold", "fold.cu", [K3_PER_ELEMENT]),
+    "k3_full_dbl": ("fold", "fold.cu", [
+        (INCLUDES, k3_full_dbl()),
+        ("if (g < G) fold_group(", "if (g < G) fold_group_full_dbl(")]),
+    "k3_neg_copy": ("fold", "fold.cu", [
+        (INCLUDES, k3_neg_copy()),
+        ("if (g < G) fold_group(", "if (g < G) fold_group_neg_copy(")]),
+    "k3_wave384": ("fold", "fold.cu", [k3_wave(0)]),
+    "k3_wave128": ("fold", "fold.cu", [k3_wave(128)]),
+    "k3_max_l1": ("fold", "fold.cu", [K3_MAX_L1]),
+    # K6 with 1 or 2 lanes a group operation, 1 or 4 window groups, the
+    # sliding-window inversion
+    "k6_lanes1": ("bn_msm_tail", "bn_msm_tail.cu", [
+        ("#define TAIL_LANES 4 ", "#define TAIL_LANES 1 ")]),
+    "k6_lanes2": ("bn_msm_tail", "bn_msm_tail.cu", [
+        ("#define TAIL_LANES 4 ", "#define TAIL_LANES 2 ")]),
+    "k6_groups1": ("bn_msm_tail", "bn_msm_tail.cu", [
+        ("#define TAIL_GROUPS 8 ", "#define TAIL_GROUPS 1 ")]),
+    "k6_groups4": ("bn_msm_tail", "bn_msm_tail.cu", [
+        ("#define TAIL_GROUPS 8 ", "#define TAIL_GROUPS 4 ")]),
+    "k6_inv_window": ("bn_msm_tail", "bn_msm_tail.cu", [
+        ('#include "bn254_kernels.cuh"\n', K6_INV_WINDOW)]),
 }
+
+# the committed K6 with another chunk count R a window (the wrapper's
+# tail_split gives 4 at S = 4096)
+SPLITS = {"k6_r2": 2, "k6_r3": 3, "k6_r5": 5, "k6_r6": 6, "k6_r8": 8,
+          "k6_r16": 16, "k6_r32": 32}
 
 
 def variant_source(name: str) -> str:
@@ -193,7 +539,11 @@ def variant_source(name: str) -> str:
     _kernel, src, edits = VARIANTS[name]
     with open(os.path.join(cb.CSRC, src)) as f:
         text = f.read()
-    for old, new in edits:
+    for edit in edits:
+        if callable(edit):
+            text = edit(text)
+            continue
+        old, new = edit
         if text.count(old) != 1:
             raise RuntimeError(f"variant {name}: {src} holds {old[:50]!r} "
                                f"{text.count(old)} times, not once")
@@ -238,12 +588,82 @@ class Swapped:
         return alt
 
 
+def kernel_times(root: str, reps: int) -> dict:
+    """K3 at 2^17 elements and K6 at B = 1, nw = 64, S = 4096 of the
+    package under ``root``, on inputs made from fixed seeds (the same for
+    every checkout): best-of-``reps`` CUDA-event times and a checksum of
+    each kernel's rows.  A checkout whose K3 takes unsigned radix-16
+    digits (an earlier commit) gets those."""
+    sys.path.insert(0, root)
+    import torch
+
+    import verifiable_mpc_tpu_torch as vm
+    from verifiable_mpc_tpu_torch import native
+    from verifiable_mpc_tpu_torch.groups.edwards import ELL
+    from verifiable_mpc_tpu_torch.ops import curve_bn as cbn
+    from verifiable_mpc_tpu_torch.ops import curve_ed as ced
+    from verifiable_mpc_tpu_torch.ops import msm_bn_cuda as mb
+    from verifiable_mpc_tpu_torch.ops import msm_cuda as mc
+
+    assert os.path.abspath(vm.__file__).startswith(os.path.abspath(root))
+    vm.enable_gpu("cuda")
+    rng = random.Random(7)
+    n = 1 << 17
+    g = ced.from_reference_rows(smoke.random_points(native, 2 * n, rng),
+                                "cuda")
+    c = rng.randrange(ELL)
+    cdig = (mc.fold_digits(c) if hasattr(mc, "fold_digits")
+            else mc.scalar_digits([c])[:, 0])
+    work = cbn.encode_jacobian_rows(cbn.encode_points(
+        smoke.bn_points(native, 4096, rng), "cuda"))
+    idx = torch.randint(0, 4096, (64 * 4096,),
+                        generator=torch.Generator().manual_seed(3))
+    acc = work[idx.to("cuda")].reshape(1, 64, 4096, 12)
+    calls = {"fold": lambda: mc.fold_rows(g[:n], g[n:], cdig),
+             "bn_msm_tail": lambda: mb.msm_tail(acc)}
+    return {k: (smoke.cuda_ms(torch, fn, reps), int(fn().sum().item()))
+            for k, fn in calls.items()}
+
+
+def against(parent: str, reps: int) -> dict:
+    """K3 and K6 of this checkout and of the one at ``parent``, each in a
+    process of its own, in turns (parent, this, this, parent); their rows
+    must agree."""
+    import subprocess
+
+    out = {"parent": [], "this": []}
+    for which in ("parent", "this", "this", "parent"):
+        root = os.path.abspath(parent) if which == "parent" else HERE
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--kernel-times", root, "--reps", str(reps)],
+                           capture_output=True, text=True, timeout=1800,
+                           check=True)
+        out[which].append(json.loads(r.stdout.strip().splitlines()[-1]))
+    sums = {json.dumps({k: v[1] for k, v in t.items()})
+            for ts in out.values() for t in ts}
+    assert len(sums) == 1, f"the checkouts' rows differ: {sums}"
+    for k in out["this"][0]:
+        print(f"{k} against {parent}: parent " + " / ".join(
+            f"{t[k][0]:.3f}" for t in out["parent"]) + " ms, this "
+            + " / ".join(f"{t[k][0]:.3f}" for t in out["this"])
+            + " ms (rows equal)", flush=True)
+    return {w: [{k: v[0] for k, v in t.items()} for t in ts]
+            for w, ts in out.items()}
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log2", type=int, default=smoke.SNARK_LOG2_MULS + 1)
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--only", nargs="*", default=sorted(VARIANTS))
+    ap.add_argument("--only", nargs="*",
+                    default=sorted(VARIANTS) + sorted(SPLITS))
+    ap.add_argument("--parent", default=None,
+                    help="also time K3 and K6 against this checkout's")
+    ap.add_argument("--kernel-times", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.kernel_times:
+        print(json.dumps(kernel_times(args.kernel_times, args.reps)))
+        return 0
 
     import torch
 
@@ -254,7 +674,10 @@ def main(argv) -> int:
     from verifiable_mpc_tpu_torch import native
     from verifiable_mpc_tpu_torch.groups.bn256 import (ORDER, BNPoint,
                                                        BNTwistPoint)
+    from verifiable_mpc_tpu_torch.groups.edwards import ELL
     from verifiable_mpc_tpu_torch.ops import _cuda_build as cb
+    from verifiable_mpc_tpu_torch.ops import curve_bn as cbn
+    from verifiable_mpc_tpu_torch.ops import curve_ed as ced
     from verifiable_mpc_tpu_torch.ops import msm_bn2_cuda as mb2
     from verifiable_mpc_tpu_torch.ops import msm_bn_cuda as mb
     from verifiable_mpc_tpu_torch.ops import msm_cuda as mc
@@ -262,39 +685,60 @@ def main(argv) -> int:
     print(smoke.card_line(), flush=True)
     vm.enable_gpu("cuda")
     main_lib = cb.lib()
-    libs = build_variants(args.only)
+    libs = build_variants([v for v in args.only if v in VARIANTS])
     dev = torch.device("cuda")
     n = 1 << args.log2
     rng = random.Random(20261018)
-    exps = [rng.randrange(ORDER) for _ in range(n)]
-    pk, nw = mc.packed_digits(native._scalars_to_u64(exps, ORDER), ORDER)
-    dig = torch.from_numpy(pk).to(dev)
-    calls = {
-        "bn2_bexp": (lambda t=mb2.bexp_table(BNTwistPoint.generator, nw,
-                                             dev): mb2.bexp_rows(t, dig)),
-        "bn_comb": (lambda t=mb.comb_table(BNPoint.generator, nw, dev):
-                    mb.comb_rows(t, dig)),
-    }
+    kernels = {VARIANTS[v][0] if v in VARIANTS else "bn_msm_tail"
+               for v in args.only}
+    calls = {}
+    if kernels & {"bn2_bexp", "bn_comb"}:
+        exps = [rng.randrange(ORDER) for _ in range(n)]
+        pk, nw = mc.packed_digits(native._scalars_to_u64(exps, ORDER), ORDER)
+        dig = torch.from_numpy(pk).to(dev)
+        calls["bn2_bexp"] = (lambda t=mb2.bexp_table(
+            BNTwistPoint.generator, nw, dev): mb2.bexp_rows(t, dig))
+        calls["bn_comb"] = (lambda t=mb.comb_table(BNPoint.generator, nw,
+                                                   dev): mb.comb_rows(t, dig))
+    if "fold" in kernels:
+        g = ced.from_reference_rows(smoke.random_points(native, 2 * n, rng),
+                                    dev)
+        cdig = mc.fold_digits(rng.randrange(ELL))
+        calls["fold"] = lambda: mc.fold_rows(g[:n], g[n:], cdig)
+    if "bn_msm_tail" in kernels:
+        work = cbn.encode_jacobian_rows(cbn.encode_points(
+            smoke.bn_points(native, 4096, rng), dev))
+        idx = torch.randint(0, 4096, (64 * 4096,),
+                            generator=torch.Generator().manual_seed(5))
+        acc = work[idx.to(dev)].reshape(1, 64, 4096, 12)
+        calls["bn_msm_tail"] = lambda: mb.msm_tail(acc)
     want = {k: fn() for k, fn in calls.items()}
+    committed_split = mb.tail_split
     out = {}
     for name in args.only:
-        kernel = VARIANTS[name][0]
-        swapped = Swapped(main_lib, ctypes.CDLL(libs[name]))
+        kernel = VARIANTS[name][0] if name in VARIANTS else "bn_msm_tail"
+        swapped = (Swapped(main_lib, ctypes.CDLL(libs[name]))
+                   if name in VARIANTS else main_lib)
         times = {"committed": [], name: []}
         for which in ("committed", name, name, "committed"):
             cb._lib = swapped if which == name else main_lib
+            if name in SPLITS and which == name:
+                mb.tail_split = lambda *a, R=SPLITS[name], **k: R
             got = calls[kernel]()
             assert torch.equal(got, want[kernel]), f"{name} differs"
             times[which].append(smoke.cuda_ms(torch, calls[kernel],
                                               args.reps))
+            mb.tail_split = committed_split
         cb._lib = main_lib
         out[name] = times
         print(f"{name} ({kernel}, n={n}): committed "
               + " / ".join(f"{t:.3f}" for t in times["committed"])
               + " ms, variant " + " / ".join(f"{t:.3f}" for t in times[name])
               + " ms (rows equal)", flush=True)
-    print(json.dumps({"n": n, "variants": out,
-                      "kind": torch.cuda.get_device_name(0)}), flush=True)
+    result = {"n": n, "variants": out, "kind": torch.cuda.get_device_name(0)}
+    if args.parent:
+        result["against"] = against(args.parent, args.reps)
+    print(json.dumps(result), flush=True)
     return 0
 
 

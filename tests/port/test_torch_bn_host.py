@@ -238,6 +238,59 @@ def test_comb_body_matches_plain(host_lib, case, k):
     assert all(out[i].tolist() == ident for i in zero)
 
 
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+def test_coop_group_ops_match_plain(host_lib, lanes, k):
+    """K6's group operations with their products spread over 1, 2 or 4
+    lanes, the lanes run one after another, against the plain RCB15 law on
+    the same working rows, word for word: random points, the identity, P +
+    P and P + (-P)."""
+    rows = k.cbn.encode_jacobian_rows(_rows(k, 6, 11, identity_at=(4,)))
+    neg = k.cbn.join_rows(k.cbn.neg_where(
+        k.torch.ones(1, dtype=k.torch.bool), k.cbn.split_rows(rows[:1])))
+    pairs = [(0, 1), (2, 3), (4, 5), (5, 4), (4, 4), (1, 1), (0, "neg")]
+    for i, j in pairs:
+        p = rows[i:i + 1]
+        q = neg if j == "neg" else rows[j:j + 1]
+        want = {0: k.cbn.add(k.cbn.split_rows(p), k.cbn.split_rows(q)),
+                1: k.cbn.dbl(k.cbn.split_rows(p))}
+        for op in (0, 1):
+            out = np.full(12, SENTINEL)
+            host_lib.host_bn_coop(op, lanes, _p(_u64(p)), _p(_u64(q)),
+                                  _p(out))
+            assert np.array_equal(out, _u64(k.cbn.join_rows(want[op]))[0]), (
+                op, i, j)
+
+
+# K6's cases: id -> (B, nw, S, R, lanes L, window groups P, the window
+# whose accumulators are all the identity or None); S = 7 with R = 3 and
+# S = 5 with R = 2 leave a short last chunk, nw = 9 and 3 a short last
+# group and empty groups, P = 1 the one-group Horner
+TAIL_CASES = {"64-L4-P8": (1, 64, 3, 2, 4, 8, 5),
+              "B3-9-L2-P4": (3, 9, 7, 3, 2, 4, 0),
+              "B2-3-L1-P8": (2, 3, 5, 2, 1, 8, None),
+              "8-L4-P1": (1, 8, 4, 4, 4, 1, 7),
+              "B2-64-L4-P8-R1": (2, 64, 2, 1, 4, 8, 63)}
+
+
+@pytest.mark.parametrize("case", list(TAIL_CASES))
+def test_msm_tail_bodies_match_plain(host_lib, case, k):
+    """K6's reduce chunks and its combination (each window's partials,
+    the window groups' Horners, the shift and add, each step's lanes run one
+    after another) against msm_tail_plain, the output filled with a
+    sentinel first."""
+    B, nw, S, R, L, P, ident = TAIL_CASES[case]
+    rows = k.cbn.encode_jacobian_rows(_rows(k, B * nw * S, 3 * nw + S,
+                                            identity_at=(1,)))
+    acc = rows.reshape(B, nw, S, 12).clone()
+    if ident is not None:
+        acc[:, ident] = k.torch.tensor(k.cbn.IDENTITY_MONT_ROW)
+    part = np.full((B, nw, R, 12), SENTINEL)
+    out = np.full((B, 12), SENTINEL)
+    host_lib.host_bn_msm_tail(_p(_u64(acc)), _p(part), _p(out), B, nw, S, R,
+                              L, P)
+    assert np.array_equal(out, _u64(k.mb.msm_tail_plain(acc, R)))
+
+
 @pytest.mark.parametrize("n", [1, 40])
 def test_encode_body_matches_plain(host_lib, n, k):
     """The kernels' first launch (input rows -> working rows) against

@@ -204,6 +204,28 @@ def test_msm_plain_with_a_ragged_last_slice_matches_reference(k):
     assert _affine(got) == _affine(ref_native.bn_msm(pts, sc))
 
 
+@pytest.mark.parametrize("nw,S,R", [(64, 3, 2), (9, 5, None)])
+def test_msm_tail_plain_matches_reference(nw, S, R, k):
+    """K6's plain version (the window's S slices in R chunks, a Horner over
+    each window group, the groups shifted and added) at B = 2 with window 1
+    all identities, against the JAX package's C++ MSM of the accumulators
+    by 16^(nw-1-w); nw = 9 leaves the last group one window and empty
+    groups after it."""
+    B = 2
+    pts = _ref_points(B * nw * S, nw + S)
+    for b in range(B):
+        for s in range(S):
+            pts[(b * nw + 1) * S + s] = RefPoint.identity
+    acc = k.cbn.encode_jacobian_rows(k.cbn.encode_points(
+        [_port(p) for p in pts], "cpu")).reshape(B, nw, S, 12)
+    got = k.cbn.decode_rows(k.mb.msm_tail_plain(acc, R))
+    sc = [16 ** (nw - 1 - w) for w in range(nw) for _ in range(S)]
+    for b in range(B):
+        expect = ref_native.bn_msm(pts[b * nw * S:(b + 1) * nw * S], sc)
+        assert _affine(got[b]) == _affine(expect)
+        assert got[b].z in (0, 1)  # normalized
+
+
 @pytest.mark.parametrize("n", [1, 17, 64])
 def test_fold_plain_matches_reference(n, k):
     gl = _ref_points(n, 2 * n, identity_at=(2,))

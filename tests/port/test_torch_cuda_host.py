@@ -158,16 +158,37 @@ def test_msm_bodies_match_plain(host_lib, case, k):
         assert np.array_equal(out, k.ced.to_rows(full)[0])
 
 
-@pytest.mark.parametrize("n", [1, 7, 40])
-def test_fold_body_matches_plain(host_lib, n, k):
+# K3's cases: id -> (n, threads G or None for G = n, challenge or None for
+# a random one); G = 3 and 6 leave ragged normalization groups
+FOLD_ZERO_RUN = sum(7 << (4 * w) for w in range(20, 63, 3))
+FOLD_CASES = {"1": (1, None, None), "7": (7, None, None),
+              "40": (40, None, None), "7-G3-c0": (7, 3, 0),
+              "7-G3-c1": (7, 3, 1), "7-G3-c8": (7, 3, 8),
+              "7-G3-c9": (7, 3, 9), "40-G6-cl-1": (40, 6, ELL - 1),
+              "40-G6-zero-run": (40, 6, FOLD_ZERO_RUN)}
+
+
+@pytest.mark.parametrize("case", list(FOLD_CASES))
+def test_fold_body_matches_plain(host_lib, case, k):
+    """K3's body over all G threads (each folding its elements g, g + G,
+    ... and normalizing them with one inversion) against fold_plain and the
+    C++ tier's fold, the output and scratch filled with a sentinel first."""
+    n, G, c = FOLD_CASES[case]
+    G = G or n
+    if c is None:
+        c = _scalars(n + 1, 3)[-1]
     gl, gr = _points(n, 2 * n), _points(n, 2 * n + 1)
-    cdig = np.ascontiguousarray(
-        k.mc.scalar_digits([_scalars(n + 1, 3)[-1]])[:, 0].astype(np.uint8))
-    out = np.zeros((n, 16), np.uint64)
-    host_lib.host_fold_norm(_p(gl), _p(gr), _p(cdig), 64, _p(out), n)
+    cdig = np.ascontiguousarray(k.mc.fold_digits(c))
+    out = np.full((n, 16), SENTINEL)
+    pre = np.full((n, 4), SENTINEL)
+    host_lib.host_fold_norm(_p(gl), _p(gr), _p(cdig), len(cdig), G,
+                            _p(pre), _p(out), n)
     plain = k.mc.fold_plain(k.ced.from_reference_rows(gl, "cpu"),
                             k.ced.from_reference_rows(gr, "cpu"), cdig)
     assert np.array_equal(out, k.ced.to_rows(plain))
+    host = native.ed_fold_arr(gl, gr, native._ints_to_u64x4([c], ELL))
+    native.ed_batch_normalize_arr(host)
+    assert np.array_equal(out, host)
 
 
 P = (1 << 255) - 19

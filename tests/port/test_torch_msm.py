@@ -10,6 +10,7 @@ import types
 import numpy as np
 import pytest
 
+from verifiable_mpc_tpu import native as ref_native
 from verifiable_mpc_tpu.groups.edwards import ELL, EdwardsPoint as RefPoint
 from verifiable_mpc_tpu.ops import dispatch as ref_dispatch
 from verifiable_mpc_tpu.ops import msm as ref_msm
@@ -17,6 +18,8 @@ from verifiable_mpc_tpu.ops import msm_pallas as ref_mp
 from verifiable_mpc_tpu_torch import native
 from verifiable_mpc_tpu_torch.groups.edwards import EdwardsPoint
 from verifiable_mpc_tpu_torch.ops import dispatch
+
+from test_torch_bn_field import load_reference_native
 
 EDGE = [0, 1, ELL // 2 - 1, ELL // 2, ELL // 2 + 1, ELL - 2, ELL - 1]
 
@@ -128,6 +131,30 @@ def test_unsigned_fold_digits_match_reference(name, k):
                           ref_msm._scalar_digits(sc, ELL))
 
 
+# K3's challenges: the smallest, 8 (one nonzero NAF digit) and 9, the
+# largest, and one with runs of zeros (the nibble 7 in every third 4-bit
+# window from window 2, least significant first; about 2^119, which keeps
+# the plain ladders of this file short)
+FOLD_CHALLENGES = {"c0": 0, "c1": 1, "c8": 8, "c9": 9, "cl-1": ELL - 1,
+                   "zero-run": sum(7 << (4 * w) for w in range(2, 32, 3))}
+
+
+@pytest.mark.parametrize("name", sorted(FOLD_CHALLENGES))
+def test_fold_digits_rebuild_the_challenge(name, k):
+    """K3's digits, c's width-5 NAF (not balanced against the order): 256
+    digits, most significant first, each 0 or odd in [-15, 15], at most
+    one nonzero in any five, that rebuild c."""
+    c = FOLD_CHALLENGES[name]
+    d = k.mc.fold_digits(c)
+    assert d.dtype == np.int8 and d.shape == (256,)
+    assert sum(int(x) << (255 - i) for i, x in enumerate(d)) == c % ELL
+    nz = np.flatnonzero(d)
+    assert (np.abs(d[nz]) <= 15).all() and (d[nz] % 2 == 1).all()
+    assert (np.diff(nz) >= 5).all()
+    if name == "zero-run":
+        assert (d == 0).sum() > 220
+
+
 # ---------------------------------------------------------------------------
 # the plain versions through the dispatch
 # ---------------------------------------------------------------------------
@@ -154,11 +181,21 @@ def test_msm_plain_with_a_ragged_last_slice_matches_host(plain_backends, k):
     assert _affine(got) == _affine(expect)
 
 
-@pytest.mark.parametrize("n", [1, 7, 300])
-def test_fold_plain_matches_reference_fold(n, plain_backends):
+@pytest.mark.parametrize("n,challenge", [
+    pytest.param(n, c, id=f"{n}" + (f"-{c}" if c else ""))
+    for n in (1, 7, 300) for c in [None] + sorted(FOLD_CHALLENGES)])
+def test_fold_plain_matches_reference_fold(n, challenge, plain_backends):
+    """K3's plain version through the dispatch against the JAX package's
+    fold (its host law for a random c, its C++ tier for the edge
+    challenges)."""
     gl, gr = _ref_points(n, 2 * n), _ref_points(n, 2 * n + 1)
-    c = _scalars(n + 3, 3 * n)[-1]
-    expect = [a ** c * b for a, b in zip(gl, gr)]
+    if challenge is None:
+        c = _scalars(n + 3, 3 * n)[-1]
+        expect = [a ** c * b for a, b in zip(gl, gr)]
+    else:
+        c = FOLD_CHALLENGES[challenge]
+        assert load_reference_native() is not None
+        expect = ref_native.ed_fold(gl, gr, c)
     got = dispatch.fold_generators([_port(p) for p in gl],
                                    [_port(p) for p in gr], c)
     assert [_affine(p) for p in got] == [_affine(p) for p in expect]

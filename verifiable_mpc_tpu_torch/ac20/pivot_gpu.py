@@ -101,8 +101,8 @@ def _fold(g_dev: torch.Tensor, c: int) -> torch.Tensor:
     from ..ops import msm_cuda
 
     half = g_dev.shape[0] // 2
-    cdig = msm_cuda.scalar_digits([int(c)], ELL)[:, 0]
-    return msm_cuda.fold_rows(g_dev[:half], g_dev[half:], cdig)
+    return msm_cuda.fold_rows(g_dev[:half], g_dev[half:],
+                              msm_cuda.fold_digits(int(c)))
 
 
 def _k_pow(k_arr: np.ndarray, y_can: int) -> EdwardsPoint:

@@ -319,24 +319,265 @@ FE_FN void bn_msm_accum_one(const uint64_t *tbl, const uint8_t *digits,
   g1_store(acc_row, acc);
 }
 
-// K6 second phase body (B2's Horner with the BN adapter): window sums [nw]
-// (most significant first) -> the normalized result row.
-FE_FN void bn_msm_horner_one(const uint64_t *wsum, uint64_t *out_row,
-                             int nw) {
-  g1p h;
-  g1_identity(h);
-  for (int w = 0; w < nw; w++) {
-    for (int k = 0; k < 4; k++) {
-      g1p t;
-      g1_dbl(t, h);
-      h = t;
-    }
-    g1p sw, t;
-    g1_load(sw, wsum + (size_t)w * 12);
-    g1_add(t, h, sw);
-    h = t;
+// ---------------------------------------------------------------------------
+// K6 (B2's BN instance): the window sums' combination spread over lanes
+// ---------------------------------------------------------------------------
+//
+// A group operation runs on a group of L lanes (1, 2 or 4; bn_msm_tail.cu's
+// TAIL_LANES) that share one g1_coop in shared memory.  An add (RCB15
+// Algorithm 7) has two levels of 6 independent products, a doubling
+// (Algorithm 9) two levels of 4: lane l computes the level's products
+// k = l, l + L, ... (every lane the same fp_mul on operands it picks by k),
+// writes them to the slots, and the group meets at a barrier; the linear
+// steps between the levels run in every lane alike.  Each step below is a
+// function of (slots, lane, L) that reads only what earlier steps wrote:
+// the kernel runs a step in all lanes at once and then __syncwarp, the host
+// harness (host_check.cc) runs the lanes one after another (CoopLanes::run).
+
+#if defined(__CUDACC__)
+#define FE_MEMBER __host__ __device__ __forceinline__
+#else
+#define FE_MEMBER inline
+#endif
+
+// one lane group's shared slots: v holds the point (X, Y, Z), an add's
+// other operand and 0 (v[6]); m the products of an operation's two levels
+struct g1_coop {
+  fp v[7];
+  fp m[2][6];
+};
+
+// the lanes of one group: lane, L and the group's warp mask (device)
+struct CoopLanes {
+  int lane, L;
+  unsigned mask;
+  // step(l) for every lane l of the group, then the group's barrier
+  template <class F>
+  FE_MEMBER void run(F step) const {
+#if defined(__CUDA_ARCH__)
+    step(lane);
+    __syncwarp(mask);
+#else
+    for (int l = 0; l < L; l++) step(l);
+#endif
   }
-  g1_store_normalized(out_row, h);
+};
+
+// r = c ? a : r, without a branch
+FE_FN void fp_pick(fp &r, bool c, const fp &a) {
+  for (int i = 0; i < 8; i++) r.v[i] = c ? a.v[i] : r.v[i];
+}
+
+// the nibble k of a table of small indices
+FE_FN int nib(uint32_t table, int k) { return (table >> (4 * k)) & 15; }
+
+// doubling, level 1: Y Y, Y Z, Z Z, X Y
+FE_FN void coop_dbl_lv1(g1_coop &s, int lane, int L) {
+  for (int k = lane; k < 4; k += L) {
+    fp a = s.v[nib(0x0211u, k)], b = s.v[nib(0x1221u, k)], r;
+    fp_mul(r, a, b);
+    s.m[0][k] = r;
+  }
+}
+
+// doubling, level 2: t2 = b3 Z^2, z3 = 8 Y^2, y3 = Y^2 + t2, t0 = Y^2 - 3 t2;
+// products t2 z3, Y Z z3, t0 y3, t0 X Y
+FE_FN void coop_dbl_lv2(g1_coop &s, int lane, int L) {
+  fp t0 = s.m[0][0], t1 = s.m[0][1], xy = s.m[0][3], t2, z3, y3, u;
+  fp_mul_b3(t2, s.m[0][2]);
+  fp_add(z3, t0, t0);
+  fp_add(z3, z3, z3);
+  fp_add(z3, z3, z3);
+  fp_add(y3, t0, t2);
+  fp_add(u, t2, t2);
+  fp_add(u, u, t2);
+  fp_sub(t0, t0, u);
+  for (int k = lane; k < 4; k += L) {
+    fp a = t2, b = z3, r;
+    fp_pick(a, k == 1, t1);
+    fp_pick(a, k >= 2, t0);
+    fp_pick(b, k == 2, y3);
+    fp_pick(b, k == 3, xy);
+    fp_mul(r, a, b);
+    s.m[1][k] = r;
+  }
+}
+
+// doubling, the result: X = 2 m3, Y = m0 + m2, Z = m1 (coordinate c written
+// by lane c mod L)
+FE_FN void coop_dbl_fin(g1_coop &s, int lane, int L) {
+  for (int c = lane; c < 3; c += L) {
+    fp r;
+    if (c == 0) {
+      fp_add(r, s.m[1][3], s.m[1][3]);
+    } else if (c == 1) {
+      fp_add(r, s.m[1][0], s.m[1][2]);
+    } else {
+      r = s.m[1][1];
+    }
+    s.v[c] = r;
+  }
+}
+
+// add, level 1 (v[0..2] + v[3..5]): X1 X2, Y1 Y2, Z1 Z2, (X1 + Y1)(X2 + Y2),
+// (Y1 + Z1)(Y2 + Z2), (X1 + Z1)(X2 + Z2); each operand is the sum of two
+// slots, the zero slot v[6] for the first three
+FE_FN void coop_add_lv1(g1_coop &s, int lane, int L) {
+  for (int k = lane; k < 6; k += L) {
+    fp a, b, r;
+    fp_add(a, s.v[nib(0x010210u, k)], s.v[nib(0x221666u, k)]);
+    fp_add(b, s.v[nib(0x343543u, k)], s.v[nib(0x554666u, k)]);
+    fp_mul(r, a, b);
+    s.m[0][k] = r;
+  }
+}
+
+// add, level 2: the linear steps of bn_add_lm, then the products
+// t3 t1, t4 y3, y3 t0, t1 z3, z3 t4, t0 t3
+FE_FN void coop_add_lv2(g1_coop &s, int lane, int L) {
+  fp t0 = s.m[0][0], t1 = s.m[0][1], t2 = s.m[0][2], t3, t4, xz, y3, z3, u;
+  fp_add(u, t0, t1);
+  fp_sub(t3, s.m[0][3], u);  // x1 y2 + x2 y1
+  fp_add(u, t1, t2);
+  fp_sub(t4, s.m[0][4], u);  // y1 z2 + y2 z1
+  fp_add(u, t0, t2);
+  fp_sub(xz, s.m[0][5], u);  // x1 z2 + x2 z1
+  fp_add(u, t0, t0);
+  fp_add(t0, u, t0);  // 3 x1 x2
+  fp_mul_b3(t2, t2);  // b3 z1 z2
+  fp_add(z3, t1, t2);
+  fp_sub(t1, t1, t2);
+  fp_mul_b3(y3, xz);  // b3 (x1 z2 + x2 z1)
+  for (int k = lane; k < 6; k += L) {
+    fp a = t3, b = t1, r;
+    fp_pick(a, k == 1, t4);
+    fp_pick(a, k == 2, y3);
+    fp_pick(a, k == 3, t1);
+    fp_pick(a, k == 4, z3);
+    fp_pick(a, k == 5, t0);
+    fp_pick(b, k == 1, y3);
+    fp_pick(b, k == 2, t0);
+    fp_pick(b, k == 3, z3);
+    fp_pick(b, k == 4, t4);
+    fp_pick(b, k == 5, t3);
+    fp_mul(r, a, b);
+    s.m[1][k] = r;
+  }
+}
+
+// add, the result: X = m0 - m1, Y = m2 + m3, Z = m4 + m5
+FE_FN void coop_add_fin(g1_coop &s, int lane, int L) {
+  for (int c = lane; c < 3; c += L) {
+    fp r;
+    if (c == 0) {
+      fp_sub(r, s.m[1][0], s.m[1][1]);
+    } else {
+      fp_add(r, s.m[1][2 * c], s.m[1][2 * c + 1]);
+    }
+    s.v[c] = r;
+  }
+}
+
+// slots dst[0..2] <- a working row (12 u64), the words split over the lanes
+FE_FN void coop_load_row(fp *dst, const uint64_t *row, int lane, int L) {
+  for (int i = lane; i < 12; i += L) {
+    uint64_t x = row[i];
+    dst[i >> 2].v[2 * (i & 3)] = (uint32_t)x;
+    dst[i >> 2].v[2 * (i & 3) + 1] = (uint32_t)(x >> 32);
+  }
+}
+
+// slots dst[0..2] <- src[0..2], the words split over the lanes
+FE_FN void coop_copy(fp *dst, const fp *src, int lane, int L) {
+  for (int i = lane; i < 24; i += L) dst[i >> 3].v[i & 7] = src[i >> 3].v[i & 7];
+}
+
+// v[0..2] = 2 v[0..2]
+template <class Lanes>
+FE_FN void coop_dbl(const Lanes &ex, g1_coop &s) {
+  ex.run([&](int l) { coop_dbl_lv1(s, l, ex.L); });
+  ex.run([&](int l) { coop_dbl_lv2(s, l, ex.L); });
+  ex.run([&](int l) { coop_dbl_fin(s, l, ex.L); });
+}
+
+// v[0..2] = v[0..2] + v[3..5]
+template <class Lanes>
+FE_FN void coop_add(const Lanes &ex, g1_coop &s) {
+  ex.run([&](int l) { coop_add_lv1(s, l, ex.L); });
+  ex.run([&](int l) { coop_add_lv2(s, l, ex.L); });
+  ex.run([&](int l) { coop_add_fin(s, l, ex.L); });
+}
+
+// window w's sum: its R partials part [R][12] (working rows), summed in
+// order into v[0..2] and copied to wsum [3]
+template <class Lanes>
+FE_FN void bn_tail_window(const Lanes &ex, g1_coop &s,
+                          const uint64_t *part, int R, fp *wsum) {
+  ex.run([&](int l) {
+    coop_load_row(s.v, part, l, ex.L);
+    if (l == 0) fp_zero(s.v[6]);
+  });
+  for (int r = 1; r < R; r++) {
+    ex.run([&](int l) { coop_load_row(s.v + 3, part + (size_t)r * 12, l,
+                                      ex.L); });
+    coop_add(ex, s);
+  }
+  ex.run([&](int l) { coop_copy(wsum, s.v, l, ex.L); });
+}
+
+// the windows [a, b) of group j of P (ceil(nw / P) windows each, the last
+// groups shorter or empty)
+FE_FN void bn_tail_span(int j, int nw, int P, int &a, int &b) {
+  int k = (nw + P - 1) / P;
+  a = j * k < nw ? j * k : nw;
+  b = a + k < nw ? a + k : nw;
+}
+
+// group j's Horner over its windows (most significant first) of the
+// window sums wsum [nw][3]: v[0..2] = sum_{w in [a, b)} 16^(b-1-w) S_w (an
+// empty group does nothing: bn_tail_shift stops before it)
+template <class Lanes>
+FE_FN void bn_tail_group(const Lanes &ex, g1_coop &s, const fp (*wsum)[3],
+                         int j, int nw, int P) {
+  int a, b;
+  bn_tail_span(j, nw, P, a, b);
+  if (a == b) return;
+  ex.run([&](int l) {
+    coop_copy(s.v, wsum[a], l, ex.L);
+    if (l == 0) fp_zero(s.v[6]);
+  });
+  for (int w = a + 1; w < b; w++) {
+    for (int i = 0; i < 4; i++) coop_dbl(ex, s);
+    ex.run([&](int l) { coop_copy(s.v + 3, wsum[w], l, ex.L); });
+    coop_add(ex, s);
+  }
+}
+
+// group 0 after every group's Horner: shift and add the groups' sums
+// (sh[j].v[0..2] of group j), 16^(nw - b_j) H_j, into sh[0], then its
+// normalized result row (lane 0; out [12])
+template <class Lanes>
+FE_FN void bn_tail_shift(const Lanes &ex, g1_coop *sh, int nw, int P,
+                         uint64_t *out) {
+  int a, b, prev;
+  bn_tail_span(0, nw, P, a, prev);
+  for (int j = 1; j < P; j++) {
+    bn_tail_span(j, nw, P, a, b);
+    if (a == b) break;
+    for (int i = 0; i < 4 * (b - prev); i++) coop_dbl(ex, sh[0]);
+    ex.run([&](int l) { coop_copy(sh[0].v + 3, sh[j].v, l, ex.L); });
+    coop_add(ex, sh[0]);
+    prev = b;
+  }
+  ex.run([&](int l) {
+    if (l == 0) {
+      g1p h;
+      h.X = sh[0].v[0];
+      h.Y = sh[0].v[1];
+      h.Z = sh[0].v[2];
+      g1_store_normalized(out, h);
+    }
+  });
 }
 
 // K7 body (B3's BN instance, msm_pallas._make_fold_kernel): gl^c * gr for

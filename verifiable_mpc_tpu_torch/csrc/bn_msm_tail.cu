@@ -4,29 +4,49 @@
 // _make_tail_kernel (the pallas_call in _tail_pallas): the lane all-reduce
 // of the window accumulators, then the Horner ladder over the windows (4
 // doublings + 1 add each), then the normalization (on the TPU the BN
-// result left projective and the host divided).  As K2, two launches:
-// bn_msm_reduce_kernel sums a window's S slice accumulators in one block
-// (a strided walk, then a shared-memory tree), bn_msm_horner_kernel runs
-// the ladder and the normalization, one thread per batch.
+// result left projective and the host divided).  Two launches:
 //
-// Bound: integer multiplies.  The Horner thread is a serial chain of ~320
-// group operations plus a Fermat inversion: its latency, not the card's
-// throughput, sets the time at these sizes.
+// * bn_msm_reduce_kernel: block (w * R + r, b) sums the r-th of R chunks of
+//   window w's S slice accumulators (a strided walk, then a shared-memory
+//   tree) into part [B][nw][R]; R is chosen so that about four adds a
+//   thread remain and nw * R * B blocks fill the card at least twice.
+// * bn_msm_combine_kernel, one block per batch: the groups of TAIL_LANES
+//   lanes first sum each window's R partials (a group per window), then
+//   TAIL_GROUPS groups run a Horner each over a run of ceil(nw / P)
+//   windows, then group 0 shifts and adds the groups' sums and normalizes
+//   (bn254_kernels.cuh: bn_tail_window, bn_tail_group, bn_tail_shift).
+//
+// Bound: integer multiplies by the card's throughput, but the combination
+// is one chain of dependent products whatever the card's width: about 252
+// doublings, 15 adds and a Fermat inversion.  A lone thread runs a
+// dependent fp_mul in about a microsecond, so the design shortens the
+// chain: the window groups take the adds of 56 windows off it, and each
+// group operation runs its independent products on TAIL_LANES lanes at
+// once (a doubling's 8 products in 2 rounds, an add's 12 in 4), where the
+// one-thread Horner it replaces ran 256 doublings and 64 adds in a row.
 
 #include "bn254_kernels.cuh"
 #include "launch.cuh"
 
 #define BN_REDUCE_THREADS 128
+#define TAIL_LANES 4    // lanes per group operation
+#define TAIL_GROUPS 8   // window groups of the combination
+#define TAIL_WINDOWS 64  // most windows of an MSM (one lane group each)
 
-__global__ void bn_msm_reduce_kernel(const uint64_t *acc, uint64_t *wsum,
-                                     int nw, int S) {
+static_assert(TAIL_GROUPS * TAIL_LANES <= 32 && 32 % TAIL_LANES == 0,
+              "the window groups must share warp 0");
+
+__global__ void bn_msm_reduce_kernel(const uint64_t *acc, uint64_t *part,
+                                     int nw, int S, int R) {
   __shared__ uint64_t sh[BN_REDUCE_THREADS][12];
-  int w = blockIdx.x;
+  int w = blockIdx.x / R, r = blockIdx.x % R;
   int b = blockIdx.y;
+  int chunk = (S + R - 1) / R;
+  int s0 = r * chunk, s1 = s0 + chunk < S ? s0 + chunk : S;
   const uint64_t *base = acc + (size_t)(b * nw + w) * S * 12;
   g1p sum;
   g1_identity(sum);
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
+  for (int s = s0 + threadIdx.x; s < s1; s += blockDim.x) {
     g1p p, t;
     g1_load(p, base + (size_t)s * 12);
     g1_add(t, sum, p);
@@ -45,26 +65,45 @@ __global__ void bn_msm_reduce_kernel(const uint64_t *acc, uint64_t *wsum,
     __syncthreads();
   }
   if (threadIdx.x < 12)
-    wsum[(size_t)(b * nw + w) * 12 + threadIdx.x] = sh[0][threadIdx.x];
+    part[((size_t)(b * nw + w) * R + r) * 12 + threadIdx.x] =
+        sh[0][threadIdx.x];
 }
 
-__global__ void bn_msm_horner_kernel(const uint64_t *wsum, uint64_t *out,
-                                     int B, int nw) {
-  int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  bn_msm_horner_one(wsum + (size_t)b * nw * 12, out + (size_t)b * 12, nw);
+__global__ void __launch_bounds__(TAIL_WINDOWS * TAIL_LANES)
+    bn_msm_combine_kernel(const uint64_t *part, uint64_t *out, int nw,
+                          int R) {
+  __shared__ g1_coop sh[TAIL_WINDOWS];
+  __shared__ fp wsum[TAIL_WINDOWS][3];
+  int b = blockIdx.x;
+  int grp = threadIdx.x / TAIL_LANES;
+  CoopLanes ex;
+  ex.lane = threadIdx.x % TAIL_LANES;
+  ex.L = TAIL_LANES;
+  ex.mask = ((1u << TAIL_LANES) - 1)
+            << (threadIdx.x % 32 / TAIL_LANES * TAIL_LANES);
+  if (grp < nw)
+    bn_tail_window(ex, sh[grp], part + (size_t)(b * nw + grp) * R * 12, R,
+                   wsum[grp]);
+  __syncthreads();
+  if (grp < TAIL_GROUPS) bn_tail_group(ex, sh[grp], wsum, grp, nw,
+                                       TAIL_GROUPS);
+  __syncthreads();
+  if (grp == 0) bn_tail_shift(ex, sh, nw, TAIL_GROUPS, out + (size_t)b * 12);
 }
 
-// acc [B][nw][S][12] -> wsum [B][nw][12] (scratch) -> out [B][12]
-extern "C" int vmpc_cu_bn_msm_tail(const uint64_t *acc, uint64_t *wsum,
+// acc [B][nw][S][12] -> part [B][nw][R][12] (scratch) -> out [B][12]
+extern "C" int vmpc_cu_bn_msm_tail(const uint64_t *acc, uint64_t *part,
                                    uint64_t *out, int B, int nw, int S,
-                                   void *stream) {
-  dim3 grid(nw, B);
-  bn_msm_reduce_kernel<<<grid, BN_REDUCE_THREADS, 0, (cudaStream_t)stream>>>(
-      acc, wsum, nw, S);
+                                   int R, void *stream) {
+  if (nw <= 0 || nw > TAIL_WINDOWS || R <= 0 || B <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  dim3 grid(nw * R, B);
+  bn_msm_reduce_kernel<<<grid, BN_REDUCE_THREADS, 0, s>>>(acc, part, nw, S,
+                                                          R);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
-  bn_msm_horner_kernel<<<blocks_for(B, 32), 32, 0, (cudaStream_t)stream>>>(
-      wsum, out, B, nw);
+  bn_msm_combine_kernel<<<B, TAIL_WINDOWS * TAIL_LANES, 0, s>>>(part, out,
+                                                                nw, R);
   return (int)cudaGetLastError();
 }

@@ -27,23 +27,38 @@ FE_FN void ge_pre_store(uint64_t *row, const ge_pre &q) {
   fe_store(row + 12, q.z2);
 }
 
-// K1's first launch, for one point: its row -> the precomputed-form rows
-// of its multiples 1..8 (tbl_rows [8][16], entry m - 1 holding m P): one
-// conversion and 7 mixed adds with 7 conversions, once per point, shared
-// by all its windows.  An identity point gives identity entries.
-FE_FN void msm_table_one(const uint64_t *pt_row, uint64_t *tbl_rows) {
-  ge_ext cur;
-  ge_pre p1, q;
-  ge_load(cur, pt_row);
-  ge_to_pre(p1, cur);
-  ge_pre_store(tbl_rows, p1);
-  for (int m = 2; m <= 8; m++) {
+// The precomputed-form rows of p + k step for k = 0 .. count - 1 (p1 is
+// p's precomputed form, the entry for k = 0): count - 1 mixed adds and
+// conversions; put(k, q) receives each.  K1's table (msm_table_one: step
+// p, the multiples 1..8) and K3's (fold_group: step 2p, the odd multiples
+// 1..15) are built by this one body.
+template <class Put>
+FE_FN void ge_multiples_pre(const ge_ext &p, const ge_pre &p1,
+                            const ge_pre &step, int count, Put put) {
+  ge_ext cur = p;
+  ge_pre q;
+  put(0, p1);
+  for (int k = 1; k < count; k++) {
     ge_ext nxt;
-    ge_add_pre(nxt, cur, p1);
+    ge_add_pre(nxt, cur, step);
     cur = nxt;
     ge_to_pre(q, cur);
-    ge_pre_store(tbl_rows + (size_t)(m - 1) * 16, q);
+    put(k, q);
   }
+}
+
+// K1's first launch, for one point: its row -> the precomputed-form rows
+// of its multiples 1..8 (tbl_rows [8][16], entry m - 1 holding m P), once
+// per point, shared by all its windows.  An identity point gives identity
+// entries.
+FE_FN void msm_table_one(const uint64_t *pt_row, uint64_t *tbl_rows) {
+  ge_ext p;
+  ge_pre p1;
+  ge_load(p, pt_row);
+  ge_to_pre(p1, p);
+  ge_multiples_pre(p, p1, p1, 8, [&](int k, const ge_pre &q) {
+    ge_pre_store(tbl_rows + (size_t)k * 16, q);
+  });
 }
 
 // K1 body (B1, msm_pallas._make_chunk_kernel): the window-w accumulator of
@@ -94,43 +109,100 @@ FE_FN void msm_horner_one(const uint64_t *wsum, uint64_t *out_row, int nw,
   ge_store_normalized(out_row, h);
 }
 
+// Montgomery's trick over one thread's group of rows i = g, g + G, g + 2G,
+// ... < n of out, which hold extended points (X, Y, Z, T): each leaves as
+// its canonical affine row (x, y, 1, x y), with one inversion for the
+// group; pre [n][4] is scratch for the running products of the Z's (an
+// Ed25519 point's Z is never 0).  Per row 3 products, then x, y and x y.
+FE_FN void ed_normalize_group(uint64_t *out, uint64_t *pre, int n, int g,
+                              int G) {
+  fe c, z;
+  int last = g;
+  fe_load(c, out + (size_t)g * 16 + 8);
+  fe_store(pre + (size_t)g * 4, c);
+  for (int i = g + G; i < n; i += G) {
+    fe_load(z, out + (size_t)i * 16 + 8);
+    fe_mul(c, c, z);
+    fe_store(pre + (size_t)i * 4, c);  // Z_g ... Z_i
+    last = i;
+  }
+  fe inv;
+  fe_inv(inv, c);  // (Z_g ... Z_last)^-1
+  for (int i = last; i >= g; i -= G) {
+    uint64_t *row = out + (size_t)i * 16;
+    fe zi, X, Y, t;
+    if (i - G >= g) {
+      fe_load(t, pre + (size_t)(i - G) * 4);
+      fe_mul(zi, inv, t);  // Z_i^-1
+      fe_load(z, row + 8);
+      fe_mul(t, inv, z);  // (Z_g ... Z_{i-G})^-1
+      inv = t;
+    } else {
+      zi = inv;
+    }
+    fe_load(X, row);
+    fe_load(Y, row + 4);
+    ge_store_affine(row, X, Y, zi);
+  }
+}
+
 // K3 body (B3, msm_pallas._make_fold_kernel, plus the engine's
-// fold-then-normalize of ac20/pivot_tpu._fold_norm_call): gl^c * gr for
-// the challenge c given as nw unsigned 4-bit windows, most significant
-// first; the result leaves as a canonical affine row.
-FE_FN void fold_norm_one(const uint64_t *gl_row, const uint64_t *gr_row,
-                         const uint8_t *cdig, int nw, uint64_t *out_row) {
-  ge_pre tbl[16];
-  ge_ext p, cur;
-  ge_load(p, gl_row);
-  ge_pre_identity(tbl[0]);
-  ge_to_pre(tbl[1], p);
-  cur = p;
-  for (int m = 2; m < 16; m++) {
-    ge_ext nxt;
-    ge_add_pre(nxt, cur, tbl[1]);
-    cur = nxt;
-    ge_to_pre(tbl[m], cur);
-  }
-  ge_ext acc;
-  ge_identity(acc);
-  for (int w = 0; w < nw; w++) {
-    for (int k = 0; k < 4; k++) {
-      ge_ext t;
-      ge_dbl(t, acc);
-      acc = t;
+// fold-then-normalize of ac20/pivot_tpu._fold_norm_call): gl_i^c * gr_i
+// for the elements i = g, g + G, g + 2G, ... < n of one thread, c given
+// as its nd width-5 NAF digits, most significant first
+// (msm_cuda.fold_digits: 0 or odd in [-15, 15], at most one nonzero in any
+// five; c is not balanced, so nothing rests on gl_i lying in the order-l
+// subgroup).  Per element: the table of gl_i's odd multiples 1, 3, ..., 15
+// (ge_multiples_pre, 1 KB of local memory), the sum started from the first
+// nonzero digit's entry, then per digit a doubling (T only in the one an
+// add reads) and, for a nonzero digit, a mixed add of +-T[(|d| - 1) / 2]
+// (the sign picks the entry's operands: no negated copy, which cost
+// registers), then the add of gr_i.  Every thread reads the same digit, so
+// no branch diverges.  The sums go to their out rows as extended points
+// and leave as canonical affine rows by one inversion for the group
+// (ed_normalize_group).
+FE_FN void fold_group(const uint64_t *gl, const uint64_t *gr,
+                      const int8_t *cdig, int nd, int n, int g, int G,
+                      uint64_t *pre, uint64_t *out) {
+  int first = 0;
+  while (first < nd && cdig[first] == 0) first++;
+  for (int i = g; i < n; i += G) {
+    ge_ext acc;
+    if (first < nd) {
+      ge_pre tbl[8], p1, step, q;
+      ge_ext p, p2;
+      ge_load(p, gl + (size_t)i * 16);
+      ge_to_pre(p1, p);
+      ge_dbl(p2, p);
+      ge_to_pre(step, p2);
+      ge_multiples_pre(p, p1, step, 8,
+                       [&](int k, const ge_pre &e) { tbl[k] = e; });
+      int d = cdig[first];
+      q = tbl[((d < 0 ? -d : d) - 1) >> 1];
+      if (d < 0) ge_pre_neg(q);
+      ge_pre_to_ext(acc, q);
+      for (int b = first + 1; b < nd; b++) {
+        d = cdig[b];
+        if (d != 0 || b == nd - 1) {
+          ge_dbl(acc, acc);
+        } else {
+          ge_dbl_no_t(acc, acc);
+        }
+        if (d != 0) {
+          ge_ext t;
+          ge_add_pre_signed(t, acc, tbl[((d < 0 ? -d : d) - 1) >> 1], d < 0);
+          acc = t;
+        }
+      }
+    } else {
+      ge_identity(acc);
     }
-    int d = cdig[w];
-    if (d) {
-      ge_ext t;
-      ge_add_pre(t, acc, tbl[d]);
-      acc = t;
-    }
+    ge_ext r, sum;
+    ge_load(r, gr + (size_t)i * 16);
+    ge_add(sum, acc, r);
+    ge_store(out + (size_t)i * 16, sum);
   }
-  ge_ext r, out;
-  ge_load(r, gr_row);
-  ge_add(out, acc, r);
-  ge_store_normalized(out_row, out);
+  ed_normalize_group(out, pre, n, g, G);
 }
 
 // K4 body (B5, msm_pallas._make_bexp_comb_kernel + normalize_pack):

@@ -269,9 +269,11 @@ FE_FN void ge_add(ge_ext &r, const ge_ext &p, const ge_ext &q) {
   fe_mul(r.T, e, h);
 }
 
-// dbl-2008-hwcd with a = -1 (ed_dbl_lm); T of the input is not read
-FE_FN void ge_dbl(ge_ext &r, const ge_ext &p) {
-  fe a, b, c, e, f, g, h, t;
+// dbl-2008-hwcd with a = -1 (ed_dbl_lm), X, Y and Z only (7 products),
+// with e and h, whose product is T; T of the input is not read, and r may
+// be p
+FE_FN void ge_dbl_eh(ge_ext &r, const ge_ext &p, fe &e, fe &h) {
+  fe a, b, c, f, g, t;
   fe_sq(a, p.X);
   fe_sq(b, p.Y);
   fe_sq(t, p.Z);
@@ -287,7 +289,20 @@ FE_FN void ge_dbl(ge_ext &r, const ge_ext &p) {
   fe_mul(r.X, e, f);
   fe_mul(r.Y, g, h);
   fe_mul(r.Z, f, g);
+}
+
+// the full doubling (8 products)
+FE_FN void ge_dbl(ge_ext &r, const ge_ext &p) {
+  fe e, h;
+  ge_dbl_eh(r, p, e, h);
   fe_mul(r.T, e, h);
+}
+
+// a doubling whose T nothing reads (only the add after a doubling reads
+// T): 7 products, r.T left as it was (the ref10 pattern)
+FE_FN void ge_dbl_no_t(ge_ext &r, const ge_ext &p) {
+  fe e, h;
+  ge_dbl_eh(r, p, e, h);
 }
 
 // extended -> precomputed form (ed_to_pre)
@@ -319,6 +334,34 @@ FE_FN void ge_add_pre(ge_ext &r, const ge_ext &p, const ge_pre &q) {
   fe_mul(r.T, e, h);
 }
 
+// p + q for neg false, p - q for neg true, with q's operands picked rather
+// than a negated copy of q made: -(Y+X, Y-X, 2dT, 2Z) = (Y-X, Y+X, -2dT, 2Z),
+// so Y+X and Y-X trade places and the sign of 2dT T swaps f and g.  q may
+// lie in local memory: it is read where it is used.
+FE_FN void ge_add_pre_signed(ge_ext &r, const ge_ext &p, const ge_pre &q,
+                             bool neg) {
+  fe a, b, c, d, e, f, g, h, t;
+  fe_sub(t, p.Y, p.X);
+  fe_mul(a, t, neg ? q.ypx : q.ymx);
+  fe_add(t, p.Y, p.X);
+  fe_mul(b, t, neg ? q.ymx : q.ypx);
+  fe_mul(c, p.T, q.t2d);
+  fe_mul(d, p.Z, q.z2);
+  fe_sub(e, b, a);
+  if (neg) {
+    fe_add(f, d, c);
+    fe_sub(g, d, c);
+  } else {
+    fe_sub(f, d, c);
+    fe_add(g, d, c);
+  }
+  fe_add(h, b, a);
+  fe_mul(r.X, e, f);
+  fe_mul(r.Y, g, h);
+  fe_mul(r.Z, f, g);
+  fe_mul(r.T, e, h);
+}
+
 // -(Y+X, Y-X, 2dT, 2Z) = (Y-X, Y+X, -2dT, 2Z)  (neg_where_pre)
 FE_FN void ge_pre_neg(ge_pre &q) {
   fe t = q.ypx;
@@ -327,13 +370,26 @@ FE_FN void ge_pre_neg(ge_pre &q) {
   fe_neg(q.t2d, q.t2d);
 }
 
-// canonical affine row (x, y, 1, x*y) of p (normalize_pack)
-FE_FN void ge_store_normalized(uint64_t *row, const ge_ext &p) {
-  fe zinv, x, y, t, one;
-  fe_inv(zinv, p.Z);
-  fe_mul(t, p.X, zinv);
+// precomputed form -> extended: (Y+X, Y-X, 2dT, 2Z) gives (2X : 2Y : 2Z :
+// 2T), the same point, with 2T = 2dT / d (one product)
+FE_FN void ge_pre_to_ext(ge_ext &r, const ge_pre &q) {
+  const uint32_t k[8] = {0xcdc9f843u, 0x25e0f276u, 0x4279542eu, 0x0b5dd698u,
+                         0xcdb9cf66u, 0x2b162114u, 0x14d5ce43u, 0x40907ed2u};
+  fe inv_d;
+  for (int i = 0; i < 8; i++) inv_d.v[i] = k[i];
+  fe_sub(r.X, q.ypx, q.ymx);
+  fe_add(r.Y, q.ypx, q.ymx);
+  r.Z = q.z2;
+  fe_mul(r.T, q.t2d, inv_d);
+}
+
+// canonical affine row (x, y, 1, x*y) of (X : Y : Z) given zinv = 1/Z
+FE_FN void ge_store_affine(uint64_t *row, const fe &X, const fe &Y,
+                           const fe &zinv) {
+  fe x, y, t, one;
+  fe_mul(t, X, zinv);
   fe_canon(x, t);
-  fe_mul(t, p.Y, zinv);
+  fe_mul(t, Y, zinv);
   fe_canon(y, t);
   fe_mul(one, x, y);
   fe_canon(t, one);
@@ -342,4 +398,11 @@ FE_FN void ge_store_normalized(uint64_t *row, const ge_ext &p) {
   fe_store(row + 4, y);
   fe_store(row + 8, one);
   fe_store(row + 12, t);
+}
+
+// canonical affine row (x, y, 1, x*y) of p (normalize_pack)
+FE_FN void ge_store_normalized(uint64_t *row, const ge_ext &p) {
+  fe zinv;
+  fe_inv(zinv, p.Z);
+  ge_store_affine(row, p.X, p.Y, zinv);
 }

@@ -61,11 +61,12 @@ void host_msm(const uint64_t *pts, uint64_t *tbl, const uint8_t *digits,
   msm_horner_one(wsum, out, nw, 4);
 }
 
+// K3 with G threads: gl, gr [n][16], cdig nd NAF digits, pre [n][4],
+// out [n][16]
 void host_fold_norm(const uint64_t *gl, const uint64_t *gr,
-                    const uint8_t *cdig, int nw, uint64_t *out, int n) {
-  for (int i = 0; i < n; i++)
-    fold_norm_one(gl + (size_t)i * 16, gr + (size_t)i * 16, cdig, nw,
-                  out + (size_t)i * 16);
+                    const int8_t *cdig, int nd, int G, uint64_t *pre,
+                    uint64_t *out, int n) {
+  for (int g = 0; g < G; g++) fold_group(gl, gr, cdig, nd, n, g, G, pre, out);
 }
 
 void host_comb_norm(const uint64_t *table, const uint8_t *digits, int n,
@@ -202,8 +203,65 @@ void host_bn_msm_accum(const uint64_t *tbl, const uint8_t *digits, int B,
                          S);
 }
 
+// K6 with R chunks a window, L lanes a group and P window groups:
+// acc [B][nw][S][12] -> part [B][nw][R][12] (scratch) -> out [B][12].  A
+// chunk's partial is summed in order; the combination runs its groups one
+// after another between the kernel's block barriers, and each group step
+// lane by lane (CoopLanes::run)
+void host_bn_msm_tail(const uint64_t *acc, uint64_t *part, uint64_t *out,
+                      int B, int nw, int S, int R, int L, int P) {
+  int chunk = (S + R - 1) / R;
+  for (int b = 0; b < B; b++)
+    for (int w = 0; w < nw; w++)
+      for (int r = 0; r < R; r++) {
+        g1p sum;
+        g1_identity(sum);
+        for (int s = r * chunk; s < S && s < (r + 1) * chunk; s++) {
+          g1p p, t;
+          g1_load(p, acc + ((size_t)(b * nw + w) * S + s) * 12);
+          g1_add(t, sum, p);
+          sum = t;
+        }
+        g1_store(part + ((size_t)(b * nw + w) * R + r) * 12, sum);
+      }
+  g1_coop *sh = new g1_coop[64];
+  fp(*wsum)[3] = new fp[64][3];
+  CoopLanes ex = {0, L, 0};
+  for (int b = 0; b < B; b++) {
+    for (int g = 0; g < nw; g++)
+      bn_tail_window(ex, sh[g], part + (size_t)(b * nw + g) * R * 12, R,
+                     wsum[g]);
+    for (int g = 0; g < P; g++) bn_tail_group(ex, sh[g], wsum, g, nw, P);
+    bn_tail_shift(ex, sh, nw, P, out + (size_t)b * 12);
+  }
+  delete[] sh;
+  delete[] wsum;
+}
+
+// one of K6's group operations on L lanes, run lane by lane: out = p + q
+// (op 0) or 2 p (op 1); working rows [12]
+void host_bn_coop(int op, int L, const uint64_t *p, const uint64_t *q,
+                  uint64_t *out) {
+  g1_coop s;
+  CoopLanes ex = {0, L, 0};
+  coop_load_row(s.v, p, 0, 1);
+  coop_load_row(s.v + 3, q, 0, 1);
+  fp_zero(s.v[6]);
+  if (op == 0) {
+    coop_add(ex, s);
+  } else {
+    coop_dbl(ex, s);
+  }
+  g1p r;
+  r.X = s.v[0];
+  r.Y = s.v[1];
+  r.Z = s.v[2];
+  g1_store(out, r);
+}
+
 // K5 then K6 for one batch: pts [n][12] input rows, tbl [n][8][12]
-// scratch, digits [nw/2][n] -> out [12]
+// scratch, digits [nw/2][n] -> out [12] (wsum [nw][12]: K6's partials at
+// R = 1)
 void host_bn_msm(const uint64_t *pts, uint64_t *tbl, const uint8_t *digits,
                  int n, int nw, int S, uint64_t *acc, uint64_t *wsum,
                  uint64_t *out) {
@@ -212,18 +270,7 @@ void host_bn_msm(const uint64_t *pts, uint64_t *tbl, const uint8_t *digits,
     for (int s = 0; s < S; s++)
       bn_msm_accum_one(tbl, digits, acc + ((size_t)w * S + s) * 12, n, w,
                        s, S);
-  for (int w = 0; w < nw; w++) {
-    g1p sum;
-    g1_identity(sum);
-    for (int s = 0; s < S; s++) {
-      g1p p, t;
-      g1_load(p, acc + ((size_t)w * S + s) * 12);
-      g1_add(t, sum, p);
-      sum = t;
-    }
-    g1_store(wsum + (size_t)w * 12, sum);
-  }
-  bn_msm_horner_one(wsum, out, nw);
+  host_bn_msm_tail(acc, wsum, out, 1, nw, S, 1, 4, 8);
 }
 
 // K7: gl, gr [n][12] input rows, work [2n][12]

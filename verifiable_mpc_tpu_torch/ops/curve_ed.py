@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..groups.edwards import TWO_D
+from ..groups.edwards import D, P, TWO_D
 from . import field25519 as fe
 
 
@@ -124,6 +124,14 @@ def to_pre(p):
     x, y, z, t = p
     two_d = fe.const_rows(TWO_D, (), t.device)
     return (fe.add(y, x), fe.sub(y, x), fe.mul(t, two_d), fe.add(z, z))
+
+
+def pre_to_ext(q_pre):
+    """Precomputed form -> extended (ge_pre_to_ext): (Y+X, Y-X, 2dT, 2Z)
+    gives (2X : 2Y : 2Z : 2T), the same point, with 2T = 2dT / d."""
+    ypx, ymx, t2d, z2 = q_pre
+    inv_d = fe.const_rows(pow(D, -1, P), (), t2d.device)
+    return (fe.sub(ypx, ymx), fe.add(ypx, ymx), z2, fe.mul(t2d, inv_d))
 
 
 def add_pre(p, q_pre):

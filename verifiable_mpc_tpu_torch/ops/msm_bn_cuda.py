@@ -8,7 +8,7 @@ hand-written in CUDA (``csrc/bn_*.cu``, one source each, over
 
 =====  =====================  ==========================================
 K5     bn_msm_accumulate      4-bit signed-window accumulation (B1, BN)
-K6     bn_msm_tail            window reduction + Horner + normalize (B2)
+K6     bn_msm_tail            window reduction + split Horner + normalize (B2)
 K7     bn_fold                g_l^c * g_r + normalize (B3, BN)
 K8     bn_comb                fixed-base comb + batch normalize (B5, BN)
 =====  =====================  ==========================================
@@ -42,6 +42,10 @@ from . import msm_cuda as mc
 TABLE = mc.TABLE  # fold table 0..15
 TABLE_S = mc.TABLE_S  # signed-digit table 0..8
 ROW = cbn.ROW
+# K6 (csrc/bn_msm_tail.cu): the threads of a reduce block and the window
+# groups of the combination (TAIL_GROUPS there)
+TAIL_REDUCE_THREADS = 128
+TAIL_GROUPS = 8
 
 
 # ---------------------------------------------------------------------------
@@ -83,19 +87,31 @@ def msm_accumulate(points: torch.Tensor, digits: torch.Tensor,
     return acc
 
 
+def tail_split(S: int) -> int:
+    """K6's chunk count R a window: about eight adds a thread of a reduce
+    block before its tree (R = 4 at S = 4096; 2-32 measured on the H100,
+    PERF.md)."""
+    return max(1, -(-S // (8 * TAIL_REDUCE_THREADS)))
+
+
 def msm_tail(acc: torch.Tensor) -> torch.Tensor:
     """K6: accumulators [B, nw, S, 12] -> [B, 12] normalized rows of
-    sum_w 16^(nw-1-w) sum_s acc[w, s].  CPU: :func:`msm_tail_plain`."""
+    sum_w 16^(nw-1-w) sum_s acc[w, s]: a reduce launch into R chunks a
+    window (:func:`tail_split`), then one block a batch combines them.
+    CPU: :func:`msm_tail_plain`."""
     mc._check_rows(acc, "acc", 4, ROW)
     B, nw, S, _ = acc.shape
+    if not 0 < nw <= mc.NWINDOWS or not S:
+        raise ValueError(f"window count {nw} / slice count {S}")
     if mc._same_device(acc).type == "cpu":
         return msm_tail_plain(acc)
     from . import _cuda_build as cb
 
-    wsum = torch.empty((B, nw, ROW), dtype=torch.int64, device=acc.device)
+    R = tail_split(S)
+    part = torch.empty((B, nw, R, ROW), dtype=torch.int64, device=acc.device)
     out = torch.empty((B, ROW), dtype=torch.int64, device=acc.device)
     cb.check(cb.lib().vmpc_cu_bn_msm_tail(
-        acc.data_ptr(), wsum.data_ptr(), out.data_ptr(), B, nw, S,
+        acc.data_ptr(), part.data_ptr(), out.data_ptr(), B, nw, S, R,
         mc._stream(acc)), "bn_msm_tail")
     mc.LAUNCHES["bn_msm_tail"] += 1
     return out
@@ -215,12 +231,43 @@ def msm_accumulate_plain(points: torch.Tensor, digits: torch.Tensor,
     return cbn.join_rows(acc)
 
 
-def msm_tail_plain(acc: torch.Tensor) -> torch.Tensor:
-    """Plain version of K6: sum the slices of each window, Horner over the
-    windows, normalize."""
-    nw = acc.shape[1]
-    sums = mc._tree_sum(cbn.split_rows(acc), 2, cbn)  # [B, nw, 16]
-    return cbn.normalize_rows(mc._horner(sums, nw, cbn))
+def tail_spans(nw: int) -> list:
+    """The windows [a, b) of K6's window groups: ceil(nw / TAIL_GROUPS)
+    each, the last ones shorter or empty (``bn_tail_span``)."""
+    k = -(-nw // TAIL_GROUPS)
+    return [(min(j * k, nw), min(j * k + k, nw)) for j in range(TAIL_GROUPS)]
+
+
+def msm_tail_plain(acc: torch.Tensor, R: int = None) -> torch.Tensor:
+    """Plain version of K6: each window's S slices summed in R chunks
+    (:func:`tail_split`), the chunks' partials summed; a Horner over each
+    window group (:func:`tail_spans`); the groups' sums shifted and added
+    (16^(nw - b) H for the group ending at b); normalize."""
+    B, nw, S, _ = acc.shape
+    dev = acc.device
+    R = R or tail_split(S)
+    chunk = -(-S // R)
+    p = cbn.split_rows(acc)
+    if R * chunk > S:
+        p = tuple(torch.cat([c, i], dim=2) for c, i in zip(
+            p, cbn.identity((B, nw, R * chunk - S), dev)))
+    part = mc._tree_sum(tuple(c.unflatten(2, (R, chunk)) for c in p), 3,
+                        cbn)  # [B, nw, R]
+    sums = mc._tree_sum(part, 2, cbn)  # [B, nw]
+    spans = [(a, b) for a, b in tail_spans(nw) if a < b]
+    k = spans[0][1]
+    # each group's windows, led by identities up to k (no change to its sum)
+    idx = torch.tensor([[nw] * (k - b + a) + list(range(a, b))
+                        for a, b in spans], device=dev)
+    ext = tuple(torch.cat([c, i], dim=1) for c, i in zip(
+        sums, cbn.identity((B, 1), dev)))
+    h = mc._horner(tuple(c[:, idx] for c in ext), k, cbn)  # [B, groups]
+    out = tuple(c[:, 0] for c in h)
+    for j in range(1, len(spans)):
+        for _ in range(4 * (spans[j][1] - spans[j - 1][1])):
+            out = cbn.dbl(out)
+        out = cbn.add(out, tuple(c[:, j] for c in h))
+    return cbn.normalize_rows(out)
 
 
 def msm_plain(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:

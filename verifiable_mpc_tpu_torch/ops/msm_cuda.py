@@ -10,7 +10,7 @@ signed recoding (``_scalar_digits_signed``, ``_digits_signed_from_u64x4``),
 =====  =====================  ==========================================
 K1     msm_accumulate         4-bit signed-window accumulation (B1)
 K2     msm_tail               window reduction + Horner + normalize (B2)
-K3     fold                   g_l^c * g_r + normalize (B3)
+K3     fold                   g_l^c * g_r + batch normalize (B3)
 K4     comb                   fixed-base comb + normalize (B5)
 K15    bexp                   shared-base signed-window ladder (B4)
 =====  =====================  ==========================================
@@ -42,8 +42,14 @@ from . import dispatch
 
 WINDOW = 4
 NWINDOWS = 64  # 256 / WINDOW
-TABLE = 1 << WINDOW  # fold table 0..15 (unsigned digits)
+TABLE = 1 << WINDOW  # the BN folds' table 0..15 (unsigned digits)
 TABLE_S = (1 << (WINDOW - 1)) + 1  # 0..8: signed-digit table
+# K3: c's width-5 NAF in FOLD_DIGITS digits, and its threads an SM: fewer
+# than its registers allow (384), which ran faster on an H100
+# (chip_variants.py's k3_wave384 and k3_wave128, PERF.md)
+FOLD_DIGITS = 256
+FOLD_NAF_WIDTH = 5
+FOLD_SM_THREADS = 256
 # points one (window, slice) thread of a window accumulation walks: K1 and
 # K5 (32: 3-5 % less time than 16 for K1 + K2 and K5 + K6 at 2^17 points
 # on an H100, PERF.md), K9 (16)
@@ -89,13 +95,36 @@ def reset_launches():
 
 def scalar_digits(scalars, order: int = ELL) -> np.ndarray:
     """[N] ints -> [NWINDOWS, N] unsigned 4-bit digits, most significant
-    window first (the fold's digit stream, ``ops/msm._scalar_digits``)."""
+    window first (the BN folds' digit stream, ``ops/msm._scalar_digits``)."""
     raw = b"".join((int(s) % order).to_bytes(32, "little") for s in scalars)
     by = np.frombuffer(raw, dtype=np.uint8).reshape(len(scalars), 32)
     digits = np.empty((len(scalars), NWINDOWS), np.uint32)
     digits[:, 0::2] = by & 15
     digits[:, 1::2] = by >> 4
     return np.ascontiguousarray(digits[:, ::-1].T)
+
+
+def fold_digits(c: int) -> np.ndarray:
+    """c mod ELL -> [FOLD_DIGITS] int8, its width-5 NAF (K3's digits), most
+    significant first: every digit 0 or odd in [-15, 15], at most one
+    nonzero in any five, sum_b d_b 2^(FOLD_DIGITS - 1 - b) = c.  c is not
+    balanced against the order (as :func:`scalar_digits_signed` does), so
+    the fold does not rest on its points lying in the order's subgroup."""
+    c %= ELL
+    w = 1 << FOLD_NAF_WIDTH
+    out = np.zeros(FOLD_DIGITS, np.int8)
+    b = 0
+    while c:
+        d = 0
+        if c & 1:
+            d = c % w
+            if d >= w // 2:
+                d -= w
+            c -= d
+        out[b] = d
+        c >>= 1
+        b += 1
+    return np.ascontiguousarray(out[::-1])
 
 
 def scalar_digits_signed(scalars, order: int = ELL) -> np.ndarray:
@@ -335,28 +364,44 @@ def msm_rows(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
 
 def fold_rows(gl: torch.Tensor, gr: torch.Tensor,
               cdigits: np.ndarray) -> torch.Tensor:
-    """[gl_i^c * gr_i] as canonical rows; ``cdigits``: c's unsigned 4-bit
-    windows, most significant first (:func:`scalar_digits`).  CUDA: K3;
-    CPU: :func:`fold_plain`."""
+    """[gl_i^c * gr_i] as canonical rows; ``cdigits``: c's width-5 NAF,
+    most significant first (:func:`fold_digits`).  CUDA: K3, G =
+    :func:`fold_threads` threads, thread g folding the elements g, g + G,
+    ... and normalizing them with one inversion; CPU: :func:`fold_plain`."""
     _check_rows(gl, "gl", 2)
     _check_rows(gr, "gr", 2)
     if gl.shape != gr.shape:
         raise ValueError("gl and gr differ in shape")
-    cdig = np.ascontiguousarray(cdigits, dtype=np.uint8).reshape(-1)
-    if len(cdig) > NWINDOWS or cdig.max(initial=0) >= TABLE:
-        raise ValueError("fold digits must be <= 64 windows in [0, 15]")
+    cdig = np.ascontiguousarray(cdigits, dtype=np.int8).reshape(-1)
+    half = 1 << (FOLD_NAF_WIDTH - 1)
+    if (len(cdig) > FOLD_DIGITS or (cdig % 2 == 0)[cdig != 0].any()
+            or np.abs(cdig.astype(np.int16)).max(initial=0) >= half):
+        raise ValueError(f"fold digits must be <= {FOLD_DIGITS} NAF digits,"
+                         f" 0 or odd below {half} in magnitude")
     if _same_device(gl, gr).type == "cpu":
         return fold_plain(gl, gr, cdig)
     from . import _cuda_build as cb
 
-    lib = cb.lib()
     n = gl.shape[0]
     out = torch.empty((n, 16), dtype=torch.int64, device=gl.device)
-    cb.check(lib.vmpc_cu_fold_norm(gl.data_ptr(), gr.data_ptr(),
-                                   cdig.ctypes.data, len(cdig), out.data_ptr(),
-                                   n, _stream(gl)), "fold")
+    if not n:
+        return out
+    pre = torch.empty((n, 4), dtype=torch.int64, device=gl.device)
+    cb.check(cb.lib().vmpc_cu_fold_norm(
+        gl.data_ptr(), gr.data_ptr(), cdig.ctypes.data, len(cdig),
+        fold_threads(n, gl.device), pre.data_ptr(), out.data_ptr(), n,
+        _stream(gl)), "fold")
     LAUNCHES["fold"] += 1
     return out
+
+
+def fold_threads(n: int, dev: torch.device) -> int:
+    """K3's thread count G for n elements: one wave (:func:`one_wave`) of
+    at most FOLD_SM_THREADS an SM."""
+    from . import _cuda_build as cb
+
+    return one_wave(n, min(cb.lib().vmpc_cu_fold_resident(),
+                           FOLD_SM_THREADS), dev)
 
 
 def comb_rows(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
@@ -537,23 +582,35 @@ def msm_plain(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
 
 def fold_plain(gl: torch.Tensor, gr: torch.Tensor,
                cdig: np.ndarray) -> torch.Tensor:
-    """Plain version of K3: table 0..15 of gl, Horner over c's unsigned
-    windows, add gr, normalize."""
+    """Plain version of K3: the table of gl's odd multiples 1, 3, ... (up
+    to the largest |digit| of c) in precomputed form, the sum started from
+    the first nonzero digit's entry, then per digit a doubling and for a
+    nonzero one a mixed add of +-T[(|d| - 1) / 2], add gr, normalize."""
     n = gl.shape[0]
-    dev = gl.device
-    g = ced.split_rows(gl)
-    pre1 = ced.to_pre(g)
-    tbl = [None, pre1]
-    cur = g
-    for _ in range(2, TABLE):
-        cur = ced.add_pre(cur, pre1)
-        tbl.append(ced.to_pre(cur))
-    acc = ced.identity((n,), dev)
-    for d in cdig:
-        for _ in range(WINDOW):
+    nz = np.flatnonzero(cdig)
+    if nz.size:
+        g = ced.split_rows(gl)
+        tbl = [ced.to_pre(g)]
+        step = ced.to_pre(ced.dbl(g))
+        cur = g
+        for _ in range(int(np.abs(cdig.astype(np.int16)).max()) // 2):
+            cur = ced.add_pre(cur, step)
+            tbl.append(ced.to_pre(cur))
+
+        def entry(d):
+            q = tbl[(abs(d) - 1) // 2]
+            if d > 0:
+                return q
+            return ced.neg_where_pre(
+                torch.ones((n,), dtype=torch.bool, device=gl.device), q)
+
+        acc = ced.pre_to_ext(entry(int(cdig[nz[0]])))
+        for d in cdig[nz[0] + 1:]:
             acc = ced.dbl(acc)
-        if d:
-            acc = ced.add_pre(acc, tbl[int(d)])
+            if d:
+                acc = ced.add_pre(acc, entry(int(d)))
+    else:
+        acc = ced.identity((n,), gl.device)
     return ced.normalize_rows(ced.add(acc, ced.split_rows(gr)))
 
 
@@ -658,10 +715,9 @@ def msm_async(points, scalars):
 def fold(g_l, g_r, c: int) -> list:
     """[g_l[i] ** c * g_r[i]] (normalized) through K3."""
     assert len(g_l) == len(g_r)
-    cdig = scalar_digits([int(c)], ELL)[:, 0]
     dev = current_device()
     out = fold_rows(ced.encode_points(g_l, dev), ced.encode_points(g_r, dev),
-                    cdig)
+                    fold_digits(int(c)))
     return ced.decode_rows(out)
 
 
