@@ -10,7 +10,8 @@ Phases (each one fatal; any failure exits non-zero and prints no result):
 1. the card's name and power limit (nvidia-smi);
 2. build the kernels (nvcc, ptxas's registers per thread of every kernel,
    and one line with the registers, stack, spills and shared memory of the
-   two launches each of K1, K5, K6, K8 and K11 and of K3's) and the C++
+   two launches each of K1, K5, K6, K8, K9, K10 and K11 and of K3's) and
+   the C++
    host tier (g++), with their seconds;
 3. hold every kernel against its plain PyTorch version on the same inputs
    on the card: K1 + K2 (MSM), K3 (fold), K4 (comb) over Ed25519 and
@@ -29,7 +30,10 @@ Phases (each one fatal; any failure exits non-zero and prints no result):
    against the C++ tier), K6 also on accumulators made here at B in {1, 3},
    nw in {2, 8, 64}, S not a multiple of its chunk count R and a window
    whose accumulators are all the identity (against the C++ tier's MSM of
-   them by 16^(nw-1-w)); then each kernel alone at the shapes its path
+   them by 16^(nw-1-w)), K10 likewise on twist accumulators, and K9 with
+   identity inputs, a slice of zero digits and a point of zero digits
+   (accumulators normalized against the plain version, K9 + K10 against
+   the C++ tier); then each kernel alone at the shapes its path
    gives it, timed with CUDA events beside its plain version and its
    bound; the tolerance is exact equality of canonical values;
 4. the Ed25519 MSM at 2^16 against the port's C++ tier
@@ -170,6 +174,9 @@ BN2_DBL = 25 * BN_M
 BN2_ENC = 14 * BN_M
 BN2_INV = 2 * BN_S + BN_INV + 2 * BN_M
 BN2_NORM_EACH = 17 * BN_M
+# an entry of K9's table normalized in Montgomery form (the running
+# product, Z^-1, the inverse's update, x and y: 5 GF(p^2) products)
+BN2_ENTRY_NORM = 15 * BN_M
 
 DEV = "cuda"
 
@@ -382,18 +389,22 @@ def ptxas_usage(text: str) -> dict:
     return {k: tuple(v) for k, v in out.items() if len(v) == 5}
 
 
-# the launches of K1, K3, K5, K6, K8 and K11 (each kernel's first launch,
-# then its second)
+# the launches of K1, K3, K5, K6, K8, K9, K10 and K11 (each kernel's
+# launches in order)
 USAGE_KERNELS = (("K1", ("msm_table_kernel", "msm_accum_kernel")),
                  ("K3", ("fold_norm_kernel",)),
                  ("K5", ("bn_table_kernel", "bn_msm_accum_kernel")),
                  ("K6", ("bn_msm_reduce_kernel", "bn_msm_combine_kernel")),
                  ("K8", ("bn_encode_affine_kernel", "bn_comb_norm_kernel")),
+                 ("K9", ("bn2_table_kernel", "bn2_table_norm_kernel",
+                         "bn2_msm_accum_kernel")),
+                 ("K10", ("bn2_msm_reduce_kernel", "bn2_msm_combine_kernel")),
                  ("K11", ("bn2_encode_affine_kernel", "bn2_bexp_kernel")))
 
 
 def log_accum_usage(usage: dict):
-    """The ptxas line of the launches of K1, K3, K5, K6, K8 and K11."""
+    """The ptxas line of the launches of K1, K3, K5, K6, K8, K9, K10 and
+    K11."""
     parts = []
     for label, keys in USAGE_KERNELS:
         for key in keys:
@@ -1547,6 +1558,69 @@ def check_small_bn2(torch, native, mc, mb2, cb2, rng):
         assert not any(errs), f"twist kernels differ at n={n}: {errs}"
 
 
+# K10's cases on twist accumulators made here: (B, nw, S, the window whose
+# accumulators are all the identity or None); the chunk counts R at these
+# shapes are 4, 4, 4, 4 and 1, so S mod R is 0, 2, 3, 1 and 0
+TAIL2_CASES = ((1, 64, 4096, 5), (3, 64, 2050, 0), (1, 64, 4095, None),
+               (1, 8, 1501, 7), (3, 2, 5, None))
+
+
+def check_edges_bn2(torch, native, mc, mb2, cb2, rng, n: int = 4096,
+                    cases=TAIL2_CASES):
+    """K10 alone on accumulators made from n twist points (one in 64 the
+    identity, gathered at random) at ``cases`` (TAIL2_CASES), against
+    msm_tail_plain and the C++ tier's MSM of the same points by
+    16^(nw-1-w); K9 on the n points with those identities, a slice whose
+    digits are all zero and a point whose digits are all zero: its
+    accumulators normalized against the plain version's, K9 + K10 against
+    the C++ tier."""
+    from verifiable_mpc_tpu_torch.groups.bn256 import ORDER
+
+    dev = torch.device(DEV)
+    pts = bn2_points(native, n, rng, identity_at=tuple(range(3, n, 64)))
+    rows = cb2.encode_points(pts, dev)
+    work = cb2.encode_jacobian_rows(rows)
+    for B, nw, S, ident in cases:
+        idx = np.array([rng.randrange(n) for _ in range(B * nw * S)])
+        if ident is not None:
+            idx.reshape(B, nw, S)[:, ident] = 3  # an identity
+        acc = work[torch.from_numpy(idx).to(dev)].reshape(B, nw, S, 24)
+        got = mb2.msm_tail(acc)
+        assert torch.equal(got, mb2.msm_tail_plain(acc)), \
+            f"K10 != plain at B={B} nw={nw} S={S}"
+        sc = [16 ** (nw - 1 - w) % ORDER for w in range(nw)
+              for _ in range(S)]
+        host = bn2_host_rows(native, [
+            native.bn2_msm([pts[i] for i in idx[b * nw * S:(b + 1) * nw * S]],
+                           sc) for b in range(B)])
+        assert host_err(torch, got, host) == 0.0, \
+            f"K10 != C++ at B={B} nw={nw} S={S}"
+        R = mb2.tail_split(S)
+        log(f"   K10 at B={B} nw={nw} S={S} (R={R}, S mod R = {S % R}"
+            + (f", window {ident} all identities" if ident is not None
+               else "") + "): equals its plain version and the C++ tier")
+
+    S = mb2.msm_slices(n)
+    sc = [rng.randrange(ORDER) for _ in range(n)]
+    sc[0::S] = [0] * len(sc[0::S])  # slice 0: zero digits in every window
+    sc[7] = 0  # a point of zero digits
+    pk, nw = mc.packed_digits(native._scalars_to_u64(sc, ORDER), ORDER)
+    dig = torch.from_numpy(pk).to(dev)[None]
+    acc = mb2.msm_accumulate(rows[None], dig, S)
+    plain = mb2.msm_accumulate_plain(rows[None], dig, S)
+    norm = lambda a: cb2.normalize_rows(cb2.split_rows(a))  # noqa: E731
+    assert torch.equal(norm(acc), norm(plain)), "K9 != plain at the edges"
+    assert torch.equal(norm(acc[:, :, 0]), norm(cb2.join_rows(
+        cb2.identity((1, nw), dev)))), "K9's zero slice is no identity"
+    got = mb2.msm_rows(rows[None], dig)
+    assert torch.equal(got, mb2.msm_plain(rows[None], dig))
+    assert host_err(torch, got, bn2_host_rows(
+        native, [native.bn2_msm(pts, sc)])) == 0.0, "K9 + K10 != C++"
+    log(f"   K9 at n={n} S={S}: {len(range(3, n, 64))} identity inputs, "
+        "slice 0 and point 7 all zero digits: accumulators equal the plain "
+        "version's (normalized), K9 + K10 the C++ tier")
+
+
 def check_main_shapes_bn2(torch, native, mc, mb2, cb2, rng, n: int):
     """K9-K12 alone at the shapes of the Pinocchio path (the twist MSM of n
     points, the twist fill's batch-exp of n exponents, a fold of n): result
@@ -1562,7 +1636,7 @@ def check_main_shapes_bn2(torch, native, mc, mb2, cb2, rng, n: int):
     pk, nw = mc.packed_digits(native._scalars_to_u64(sc, ORDER), ORDER)
     dig = torch.from_numpy(pk).to(dev)[None]
     P = g[:n][None]
-    S = mc.slices_for(n)
+    S = mb2.msm_slices(n)
     acc = mb2.msm_accumulate(P, dig, S)
     acc_plain, k9_plain = cuda_once(
         torch, lambda: mb2.msm_accumulate_plain(P, dig, S))
@@ -1573,13 +1647,27 @@ def check_main_shapes_bn2(torch, native, mc, mb2, cb2, rng, n: int):
     out_plain, k10_plain = cuda_once(torch, lambda: mb2.msm_tail_plain(acc))
     k10_err = max_abs_err(torch, out, out_plain)
     assert k10_err == 0.0, "K10 differs from the plain version"
-    d = mc.unpack_digits(dig)  # [1, nw, n]
+    d = mc.unpack_digits(dig)[0].cpu().numpy()  # [nw, n]
+    d[:, 5] = 0  # the identity input: its entries are skipped
+    nzd = int((d != 0).sum())
+    G9 = mb2.table_threads(n, dev)
+    log(f"   K9's table at n={n}: {G9} threads, normalization groups of "
+        f"{n // G9}-{-(-n // G9)} points (n mod G = {n % G9})")
+    k9_bytes = n * 192 + dig.numel() + nw * S * 192
+    # what the function needs, not how the kernel spreads it: the multiples
+    # 2..8 by 4 doublings and 3 adds (the kernel does 7 adds), and one
+    # inversion for all the entries (the kernel does one a thread)
+    table_muls = n * (BN2_ENC + 4 * BN2_DBL + 3 * BN2_ADD)
+    k9_muls = (table_muls + n * 8 * BN2_ENTRY_NORM + BN2_INV
+               + BN2_MADD * nzd)
+    log(f"   K9's bound {bound(torch, k9_bytes, k9_muls, 1)[0]:.4f} ms; "
+        "with a projective table and complete adds "
+        f"{bound(torch, k9_bytes, table_muls + BN2_ADD * nzd, 1)[0]:.4f} ms")
     stats["bn2_msm_accumulate"] = dict(
         err=k9_err, ms=cuda_ms(torch, lambda: mb2.msm_accumulate(P, dig, S)),
         plain_ms=k9_plain, shape=f"B=1 n={n} nw={nw} S={S}",
-        bytes=n * 192 + dig.numel() + nw * S * 192,
-        muls=(n * (BN2_ENC + 7 * BN2_ADD)
-              + BN2_ADD * int((d != 0).sum())))
+        bytes=k9_bytes, muls=k9_muls)
+    log(f"   K10 at B=1 nw={nw} S={S}: R={mb2.tail_split(S)} chunks a window")
     stats["bn2_msm_tail"] = dict(
         err=k10_err, ms=cuda_ms(torch, lambda: mb2.msm_tail(acc)),
         plain_ms=k10_plain, shape=f"B=1 nw={nw} S={S}",
@@ -2160,6 +2248,7 @@ def main() -> int:
         check_small_bn(torch, native, mc, mb, cbn, rng)
         check_tail_bn(torch, native, mb, cbn, rng)
         check_small_bn2(torch, native, mc, mb2, cb2, rng)
+        check_edges_bn2(torch, native, mc, mb2, cb2, rng)
         check_small_new(torch, native, mc, bk, ced, add, lm, rng)
     g_half = 1 << (FLAGSHIP_LOG2_MULS + 1)  # round 0 of a 2^18 vector
     with Phase("kernels at the flagship's shapes"):

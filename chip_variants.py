@@ -1,30 +1,38 @@
 #!/usr/bin/env python3
-"""Design variants of the kernels K3, K6, K8 and K11, timed on the card
-against the committed kernels on the same inputs.
+"""Design variants of the kernels K3, K6, K8, K9, K10 and K11, timed on the
+card against the committed kernels on the same inputs.
 
     python3 chip_variants.py [--log2 17] [--reps 3] [--only NAME ...]
                              [--parent DIR]
 
 A variant is a committed kernel source (``csrc/fold.cu``,
-``csrc/bn_msm_tail.cu``, ``csrc/bn2_bexp.cu`` or ``csrc/bn_comb.cu``) with
-the few text edits listed in ``VARIANTS`` (a function's body copied from
-its header and edited counts as one), built alone with nvcc into a library
-of its own (under the kernels' build directory).  The committed kernel's
-wrapper then runs with the variant's entry points in place of the
-committed ones, on the same inputs: 2^log2 elements for K3 (the
-flagship's round 0 at the default), K6's accumulators at B = 1, nw = 64,
-S = 4096 (the Pinocchio path's MSM tail), 2^log2 exponents for K8 and K11
-(the Pinocchio path's, the G1 or the twist generator's comb table).  The
-variants in ``SPLITS`` run the committed K6 with another chunk count R a
-window.  Every variant's rows must equal the committed kernel's, and the
-two are timed in turns (committed, variant, variant, committed; CUDA
-events, best of ``--reps`` each).  The sources keep one design each; the
+``csrc/bn_msm_tail.cu``, ``csrc/bn2_bexp.cu``, ``csrc/bn_comb.cu``,
+``csrc/bn2_msm_accum.cu`` or ``csrc/bn2_msm_tail.cu``) with the few text
+edits listed in ``VARIANTS`` (a function's body copied from its header and
+edited counts as one), built alone with nvcc into a library of its own
+(under the kernels' build directory).  The committed kernel's wrapper then
+runs with the variant's entry points in place of the committed ones, on
+the same inputs: 2^log2 elements for K3 (the flagship's round 0 at the
+default), K6's accumulators at B = 1, nw = 64, S = 4096 (the Pinocchio
+path's MSM tail), 2^log2 exponents for K8 and K11 (the Pinocchio path's,
+the G1 or the twist generator's comb table), 2^log2 twist points for K9
+(the Pinocchio prove's twist MSM) and its accumulators for K10.  The
+variants in ``SPLITS`` run the committed K6 or K10 with another chunk
+count R a window; the ``WAVES`` variants run the committed K9 with its
+normalization at another count of threads an SM; the ``POINTS`` variants
+run K9 with another count of points a thread, and K10 on its
+accumulators (K9 alone, K10 alone and both are timed; the MSM's rows must
+agree).  A variant in ``ONE_LIB`` also holds the committed design, and
+both are timed from its library.  Every variant's rows must equal
+the committed kernel's (K9's accumulators once normalized), and the two
+are timed in turns (committed, variant, variant, committed; CUDA events,
+best of ``--reps`` each).  The sources keep one design each; the
 alternatives that were measured against it live only here.  Prints the
 card line, ptxas's lines of the variants, one line per variant and, last,
-one JSON object with the times.  With ``--parent DIR`` it also times K3
-and K6 of this checkout against those of the checkout at DIR (an earlier
-commit, unpacked there), each in a process of its own, in turns.  Imports
-neither jax nor the JAX package, and fails without a card.
+one JSON object with the times.  With ``--parent DIR`` it also times K3,
+K6, K9 and K10 of this checkout against those of the checkout at DIR (an
+earlier commit, unpacked there), each in a process of its own, in turns.
+Imports neither jax nor the JAX package, and fails without a card.
 """
 
 from __future__ import annotations
@@ -463,6 +471,160 @@ FE_FN void fp_inv_window(fp &r, const fp &a) {
 """
 
 
+# K9's table built with 4 doublings (2P, 4P, 8P, 6P) and 3 adds (3P, 7P,
+# 5P), 226 products where 7 adds take 294, at most two points live (P and
+# 2P read back from the entries written)
+K9_DBL_CHAIN = """
+FE_FN void bn2_entry_load(g2p &p, const uint64_t *tbl_e,
+                          const uint64_t *pre_e) {
+  fp2_load(p.X, tbl_e);
+  fp2_load(p.Y, tbl_e + 8);
+  fp2_load(p.Z, pre_e);
+}
+
+FE_FN void table_dbl_chain(const uint64_t *in_row, uint64_t *tbl,
+                           uint64_t *pre) {
+  g2p a, b;
+  g2_load_jacobian(a, in_row);
+  bn2_entry_store(tbl, pre, a);
+  for (int m = 2; m <= 8; m *= 2) {
+    g2_dbl(a, a);
+    bn2_entry_store(tbl + (m - 1) * BN2_ENTRY, pre + (m - 1) * BN2_ENTRY, a);
+  }
+  bn2_entry_load(a, tbl + BN2_ENTRY, pre + BN2_ENTRY);
+  bn2_entry_load(b, tbl, pre);
+  g2_add(a, a, b);
+  bn2_entry_store(tbl + 2 * BN2_ENTRY, pre + 2 * BN2_ENTRY, a);
+  g2_dbl(a, a);
+  bn2_entry_store(tbl + 5 * BN2_ENTRY, pre + 5 * BN2_ENTRY, a);
+  g2_add(a, a, b);
+  bn2_entry_store(tbl + 6 * BN2_ENTRY, pre + 6 * BN2_ENTRY, a);
+  bn2_entry_load(a, tbl + 3 * BN2_ENTRY, pre + 3 * BN2_ENTRY);
+  g2_add(a, a, b);
+  bn2_entry_store(tbl + 4 * BN2_ENTRY, pre + 4 * BN2_ENTRY, a);
+}
+"""
+
+
+# K9 as before its redesign: each point's multiples 1..8 as projective
+# working rows (192 bytes an entry; the first launch one thread a point)
+# and the complete add (42 products) an accumulation; its entry point keeps
+# the committed signature and holds the projective table in a buffer of
+# its own
+K9_PROJECTIVE = """__global__ void __launch_bounds__(K_THREADS, 1)
+    bn2_table_proj_kernel(const uint64_t *pts, uint64_t *tbl,
+                          long long rows) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows) return;
+  g2p p, cur;
+  g2_load_jacobian(p, pts + i * BN2_ROW);
+  uint64_t *t = tbl + i * 8 * BN2_ROW;
+  g2_store(t, p);
+  cur = p;
+  for (int m = 2; m <= 8; m++) {
+    g2_add(cur, cur, p);
+    g2_store(t + (size_t)(m - 1) * BN2_ROW, cur);
+  }
+}
+
+__global__ void __launch_bounds__(K_THREADS, 1)
+    bn2_msm_accum_proj_kernel(const uint64_t *tbl, const uint8_t *digits,
+                              uint64_t *acc, int n, int nw, int S) {
+  int b = blockIdx.y;
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= nw * S) return;
+  int w = t / S;
+  int s = t - w * S;
+  const uint64_t *tb = tbl + (size_t)b * n * 8 * BN2_ROW;
+  const uint8_t *dg = digits + (size_t)b * (nw / 2) * n;
+  g2p a;
+  g2_identity(a);
+  for (int i = s; i < n; i += S) {
+    int d = digit_at(dg, n, w, i);
+    if (d == 0) continue;
+    g2p q;
+    g2_load(q, tb + ((size_t)i * 8 + (d < 0 ? -d : d) - 1) * BN2_ROW);
+    if (d < 0) g2_neg(q);
+    g2_add(a, a, q);
+  }
+  g2_store(acc + ((size_t)(b * nw + w) * S + s) * BN2_ROW, a);
+}
+
+extern "C" int vmpc_cu_bn2_msm_accum(const uint64_t *pts, uint64_t *tbl,
+                                     uint64_t *pre, const uint8_t *digits,
+                                     uint64_t *acc, int B, int n, int nw,
+                                     int S, int G, void *stream) {
+  static uint64_t *proj = nullptr;
+  static size_t held = 0;
+  long long rows = (long long)B * n;
+  size_t need = (size_t)rows * 8 * BN2_ROW * sizeof(uint64_t);
+  if (need > held) {
+    if (proj) cudaFree(proj);
+    int rc = (int)cudaMalloc(&proj, need);
+    if (rc) return rc;
+    held = need;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  bn2_table_proj_kernel<<<blocks_for(rows, K_THREADS), K_THREADS, 0, s>>>(
+      pts, proj, rows);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  dim3 grid(blocks_for((long long)nw * S, K_THREADS), B);
+  bn2_msm_accum_proj_kernel<<<grid, K_THREADS, 0, s>>>(proj, digits, acc, n,
+                                                       nw, S);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def k9_projective(text: str) -> str:
+    """The committed K9 source with its entry point replaced by the
+    projective table's (the committed kernels stay, unlaunched)."""
+    start = text.index('extern "C" int vmpc_cu_bn2_msm_accum(')
+    return text[:start] + K9_PROJECTIVE
+
+
+def k9_projective_table_only(text: str) -> str:
+    """k9_projective's table launch alone (a timing probe)."""
+    return k9_projective(text).replace(
+        """  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  dim3 grid(""", """  return (int)cudaGetLastError();
+  dim3 grid(""")
+
+
+def blocks3(text: str) -> str:
+    """The projective accumulation asking for 3 blocks an SM."""
+    return text.replace(
+        "__launch_bounds__(K_THREADS, 1)\n    bn2_msm_accum_proj_kernel",
+        "__launch_bounds__(K_THREADS, 3)\n    bn2_msm_accum_proj_kernel")
+
+
+def k9_projective_blocks3(text: str) -> str:
+    """k9_projective with its accumulation asking for 3 blocks an SM."""
+    return blocks3(k9_projective(text))
+
+
+def k9_pair_projective3(text: str) -> str:
+    """The committed K9 source and, in the same library, k9_projective_blocks3
+    under the entry point vmpc_cu_bn2_msm_accum_alt (ONE_LIB)."""
+    return text + blocks3(K9_PROJECTIVE).replace(
+        "int vmpc_cu_bn2_msm_accum(", "int vmpc_cu_bn2_msm_accum_alt(")
+
+
+# timing probes: an entry point that returns after its first launches, so
+# that the committed kernel's time less the probe's is its last launch's
+# (their rows are not the kernel's and are not compared: NO_ROWS)
+K9_TABLE_ONLY = ("""  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  dim3 grid(""", """  return (int)cudaGetLastError();
+  dim3 grid(""")
+K10_REDUCE_ONLY = ("""  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  bn2_msm_combine_kernel""", """  return (int)cudaGetLastError();
+  bn2_msm_combine_kernel""")
+
+
 # name -> (kernel, source, [(committed text, variant text), ...])
 VARIANTS = {
     # K11's table copied into shared memory (110.6 KB a block) instead of
@@ -523,12 +685,92 @@ VARIANTS = {
         ("#define TAIL_GROUPS 8 ", "#define TAIL_GROUPS 4 ")]),
     "k6_inv_window": ("bn_msm_tail", "bn_msm_tail.cu", [
         ('#include "bn254_kernels.cuh"\n', K6_INV_WINDOW)]),
+    # K9 with the parent's projective table and complete adds (its
+    # accumulation asking for 1 or 3 blocks an SM); the committed K9 with
+    # its accumulation asking for 1 or 4 blocks an SM (at 128 threads a
+    # block, 255 and 128 registers a thread; 2 also gives 255), with the
+    # table built by doublings, and its launches before the accumulation
+    # alone (also the projective table's launch alone)
+    "k9_projective": ("bn2_msm_accumulate", "bn2_msm_accum.cu",
+                      [k9_projective]),
+    # the committed sources unchanged, built as a variant is: what the
+    # library alone changes
+    "k9_same": ("bn2_msm_accumulate", "bn2_msm_accum.cu", [
+        (INCLUDES, INCLUDES + "// the committed source\n")]),
+    "k10_same": ("bn2_msm_tail", "bn2_msm_tail.cu", [
+        (INCLUDES, INCLUDES + "// the committed source\n")]),
+    "k9_projective_blocks3": ("bn2_msm_accumulate", "bn2_msm_accum.cu",
+                              [k9_projective_blocks3]),
+    # k9_projective_blocks3 in one library with the committed K9
+    "k9_pair_projective3": ("bn2_msm_accumulate", "bn2_msm_accum.cu",
+                            [k9_pair_projective3]),
+    "k9_blocks1": ("bn2_msm_accumulate", "bn2_msm_accum.cu", [
+        ("__launch_bounds__(K_THREADS, 3)", "__launch_bounds__(K_THREADS, 1)")]),
+    "k9_blocks4": ("bn2_msm_accumulate", "bn2_msm_accum.cu", [
+        ("__launch_bounds__(K_THREADS, 3)", "__launch_bounds__(K_THREADS, 4)")]),
+    "k9_dbl_chain": ("bn2_msm_accumulate", "bn2_msm_accum.cu", [
+        (INCLUDES, INCLUDES + K9_DBL_CHAIN),
+        ("    bn2_table_one(pts + i * BN2_ROW,", "    table_dbl_chain(pts + i * BN2_ROW,")]),
+    "k9_table_only": ("bn2_msm_accumulate", "bn2_msm_accum.cu",
+                      [K9_TABLE_ONLY]),
+    # K9's first launch asking for 3 blocks an SM
+    "k9_table_blocks3": ("bn2_msm_accumulate", "bn2_msm_accum.cu", [
+        ("__launch_bounds__(K_THREADS)\n    bn2_table_kernel(",
+         "__launch_bounds__(K_THREADS, 3)\n    bn2_table_kernel(")]),
+    "k9_projective_table_only": ("bn2_msm_accumulate", "bn2_msm_accum.cu",
+                                 [k9_projective_table_only]),
+    # K10 with its reduce asking for 3 blocks an SM (170 registers), and
+    # its reduce launch alone
+    "k10_reduce_blocks3": ("bn2_msm_tail", "bn2_msm_tail.cu", [
+        ("__launch_bounds__(BN2_REDUCE_THREADS)",
+         "__launch_bounds__(BN2_REDUCE_THREADS, 3)")]),
+    "k10_reduce_only": ("bn2_msm_tail", "bn2_msm_tail.cu",
+                        [K10_REDUCE_ONLY]),
+    # K10's Horners and shift on 8 or 32 lanes a group operation
+    "k10_chain_lanes8": ("bn2_msm_tail", "bn2_msm_tail.cu", [
+        ("#define TAIL_CHAIN_LANES 16 ", "#define TAIL_CHAIN_LANES 8 ")]),
+    "k10_chain_lanes32": ("bn2_msm_tail", "bn2_msm_tail.cu", [
+        ("#define TAIL_CHAIN_LANES 16 ", "#define TAIL_CHAIN_LANES 32 ")]),
+    # K10 with 1, 2 or 4 lanes a group operation of the windows' sums (and
+    # of the Horners), 1 or 4 window groups
+    "k10_lanes1": ("bn2_msm_tail", "bn2_msm_tail.cu", [
+        ("#define TAIL_LANES 8 ", "#define TAIL_LANES 1 "),
+        ("#define TAIL_CHAIN_LANES 16 ", "#define TAIL_CHAIN_LANES 1 ")]),
+    "k10_lanes2": ("bn2_msm_tail", "bn2_msm_tail.cu", [
+        ("#define TAIL_LANES 8 ", "#define TAIL_LANES 2 "),
+        ("#define TAIL_CHAIN_LANES 16 ", "#define TAIL_CHAIN_LANES 2 ")]),
+    "k10_lanes4": ("bn2_msm_tail", "bn2_msm_tail.cu", [
+        ("#define TAIL_LANES 8 ", "#define TAIL_LANES 4 "),
+        ("#define TAIL_CHAIN_LANES 16 ", "#define TAIL_CHAIN_LANES 4 ")]),
+    "k10_groups1": ("bn2_msm_tail", "bn2_msm_tail.cu", [
+        ("#define TAIL_GROUPS 8 ", "#define TAIL_GROUPS 1 ")]),
+    "k10_groups4": ("bn2_msm_tail", "bn2_msm_tail.cu", [
+        ("#define TAIL_GROUPS 8 ", "#define TAIL_GROUPS 4 ")]),
 }
 
-# the committed K6 with another chunk count R a window (the wrapper's
-# tail_split gives 4 at S = 4096)
-SPLITS = {"k6_r2": 2, "k6_r3": 3, "k6_r5": 5, "k6_r6": 6, "k6_r8": 8,
-          "k6_r16": 16, "k6_r32": 32}
+# the committed K6 or K10 with another chunk count R a window (the
+# wrappers' tail_split give 4 at S = 4096): name -> (kernel, R)
+SPLITS = {"k6_r2": ("bn_msm_tail", 2), "k6_r3": ("bn_msm_tail", 3),
+          "k6_r5": ("bn_msm_tail", 5), "k6_r6": ("bn_msm_tail", 6),
+          "k6_r8": ("bn_msm_tail", 8), "k6_r16": ("bn_msm_tail", 16),
+          "k6_r32": ("bn_msm_tail", 32), "k10_r1": ("bn2_msm_tail", 1),
+          "k10_r2": ("bn2_msm_tail", 2), "k10_r4": ("bn2_msm_tail", 4),
+          "k10_r8": ("bn2_msm_tail", 8), "k10_r16": ("bn2_msm_tail", 16)}
+# variants whose library holds the committed design too, under the
+# committed entry points, and the variant's under other names: the two are
+# timed from one library, so the offset between libraries drops out
+# (name -> {committed entry point: the variant's})
+ONE_LIB = {"k9_pair_projective3": {
+    "vmpc_cu_bn2_msm_accum": "vmpc_cu_bn2_msm_accum_alt"}}
+NO_ROWS = {"k9_table_only", "k9_projective_table_only", "k10_reduce_only"}
+# the committed K9 with its normalization at one wave of another count of
+# threads an SM (the wrapper's TABLE_SM_THREADS is the committed one; 384
+# is what its registers allow): fewer threads, fewer inversions and longer
+# chains
+WAVES = {"k9_norm_wave128": 128, "k9_norm_wave384": 384}
+# K9's points a thread (the wrapper's ACCUM_POINTS_PER_THREAD is the
+# committed count), K10 on the accumulators each gives
+POINTS = {"k9_points16": 16, "k9_points32": 32, "k9_points64": 64}
 
 
 def variant_source(name: str) -> str:
@@ -573,15 +815,16 @@ def build_variants(names) -> dict:
 
 class Swapped:
     """The kernel library with the variant library's entry points in place
-    of the committed ones of the same names."""
+    of the committed ones of the same names (or of the names ``names``
+    maps them to)."""
 
-    def __init__(self, main, variant):
-        self.main, self.variant = main, variant
+    def __init__(self, main, variant, names=None):
+        self.main, self.variant, self.names = main, variant, names or {}
 
     def __getattr__(self, key):
         fn = getattr(self.main, key)
         try:
-            alt = getattr(self.variant, key)
+            alt = getattr(self.variant, self.names.get(key, key))
         except AttributeError:
             return fn
         alt.argtypes, alt.restype = fn.argtypes, fn.restype
@@ -589,19 +832,24 @@ class Swapped:
 
 
 def kernel_times(root: str, reps: int) -> dict:
-    """K3 at 2^17 elements and K6 at B = 1, nw = 64, S = 4096 of the
-    package under ``root``, on inputs made from fixed seeds (the same for
-    every checkout): best-of-``reps`` CUDA-event times and a checksum of
-    each kernel's rows.  A checkout whose K3 takes unsigned radix-16
-    digits (an earlier commit) gets those."""
+    """K3 at 2^17 elements, K6 at B = 1, nw = 64, S = 4096, K9 at 2^17 twist
+    points and K10 on their accumulators (each at the slice count of its
+    checkout's MSM) of the package under ``root``, on inputs made from
+    fixed seeds (the same for every checkout): best-of-``reps`` CUDA-event
+    times and a checksum of each kernel's rows (of the twist MSM's result
+    for K9 and K10).  A checkout whose K3 takes unsigned radix-16 digits
+    (an earlier commit) gets those."""
     sys.path.insert(0, root)
     import torch
 
     import verifiable_mpc_tpu_torch as vm
     from verifiable_mpc_tpu_torch import native
+    from verifiable_mpc_tpu_torch.groups.bn256 import ORDER
     from verifiable_mpc_tpu_torch.groups.edwards import ELL
     from verifiable_mpc_tpu_torch.ops import curve_bn as cbn
+    from verifiable_mpc_tpu_torch.ops import curve_bn2 as cb2
     from verifiable_mpc_tpu_torch.ops import curve_ed as ced
+    from verifiable_mpc_tpu_torch.ops import msm_bn2_cuda as mb2
     from verifiable_mpc_tpu_torch.ops import msm_bn_cuda as mb
     from verifiable_mpc_tpu_torch.ops import msm_cuda as mc
 
@@ -621,14 +869,27 @@ def kernel_times(root: str, reps: int) -> dict:
     acc = work[idx.to("cuda")].reshape(1, 64, 4096, 12)
     calls = {"fold": lambda: mc.fold_rows(g[:n], g[n:], cdig),
              "bn_msm_tail": lambda: mb.msm_tail(acc)}
-    return {k: (smoke.cuda_ms(torch, fn, reps), int(fn().sum().item()))
-            for k, fn in calls.items()}
+    out = {k: (smoke.cuda_ms(torch, fn, reps), int(fn().sum().item()))
+           for k, fn in calls.items()}
+    P = cb2.encode_points(smoke.bn2_points(native, n, rng, identity_at=(5,)),
+                          "cuda")[None]
+    sc = [rng.randrange(ORDER) for _ in range(n)]
+    dig = torch.from_numpy(mc.packed_digits(native._scalars_to_u64(
+        sc, ORDER), ORDER)[0]).to("cuda")[None]
+    S = mb2.msm_slices(n) if hasattr(mb2, "msm_slices") else mc.slices_for(n)
+    acc2 = mb2.msm_accumulate(P, dig, S)
+    rows = int(mb2.msm_tail(acc2).sum().item())
+    out["bn2_msm_accumulate"] = (smoke.cuda_ms(
+        torch, lambda: mb2.msm_accumulate(P, dig, S), reps), rows)
+    out["bn2_msm_tail"] = (smoke.cuda_ms(
+        torch, lambda: mb2.msm_tail(acc2), reps), rows)
+    return out
 
 
 def against(parent: str, reps: int) -> dict:
-    """K3 and K6 of this checkout and of the one at ``parent``, each in a
-    process of its own, in turns (parent, this, this, parent); their rows
-    must agree."""
+    """K3, K6, K9 and K10 of this checkout and of the one at ``parent``,
+    each in a process of its own, in turns (parent, this, this, parent);
+    their rows must agree."""
     import subprocess
 
     out = {"parent": [], "this": []}
@@ -651,14 +912,58 @@ def against(parent: str, reps: int) -> dict:
             for w, ts in out.items()}
 
 
+class Clocks:
+    """The card's SM clock (MHz) and power draw (W) as nvidia-smi samples
+    them every 50 ms while the block runs: ``low`` the least clock,
+    ``high`` the most power (None when no sample came)."""
+
+    def __enter__(self):
+        import subprocess
+
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "50"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out = self.proc.communicate(timeout=30)[0]
+        vals = []
+        for line in out.splitlines():
+            try:
+                vals.append(tuple(float(x) for x in line.split(",")))
+            except ValueError:
+                continue
+        self.low = min(v[0] for v in vals) if vals else None
+        self.high = max(v[1] for v in vals) if vals else None
+
+    def __str__(self):
+        return f"{self.low} MHz, {self.high} W"
+
+
+def points_times(torch, mb2, P, dig, want, reps: int) -> tuple:
+    """K9 alone, K10 alone and K9 + K10 at the slice count of the module's
+    ACCUM_POINTS_PER_THREAD (ms, best of ``reps``); the MSM's rows must
+    equal ``want``."""
+    S = mb2.msm_slices(P.shape[1])
+    acc = mb2.msm_accumulate(P, dig, S)
+    assert torch.equal(mb2.msm_tail(acc), want), f"S = {S} differs"
+    return (smoke.cuda_ms(torch, lambda: mb2.msm_accumulate(P, dig, S), reps),
+            smoke.cuda_ms(torch, lambda: mb2.msm_tail(acc), reps),
+            smoke.cuda_ms(torch, lambda: mb2.msm_rows(P, dig), reps))
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log2", type=int, default=smoke.SNARK_LOG2_MULS + 1)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--only", nargs="*",
-                    default=sorted(VARIANTS) + sorted(SPLITS))
+                    default=(sorted(VARIANTS) + sorted(SPLITS) + sorted(POINTS)
+                             + sorted(WAVES)))
     ap.add_argument("--parent", default=None,
-                    help="also time K3 and K6 against this checkout's")
+                    help="also time K3, K6, K9 and K10 against this "
+                    "checkout's")
     ap.add_argument("--kernel-times", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.kernel_times:
@@ -677,6 +982,7 @@ def main(argv) -> int:
     from verifiable_mpc_tpu_torch.groups.edwards import ELL
     from verifiable_mpc_tpu_torch.ops import _cuda_build as cb
     from verifiable_mpc_tpu_torch.ops import curve_bn as cbn
+    from verifiable_mpc_tpu_torch.ops import curve_bn2 as cb2
     from verifiable_mpc_tpu_torch.ops import curve_ed as ced
     from verifiable_mpc_tpu_torch.ops import msm_bn2_cuda as mb2
     from verifiable_mpc_tpu_torch.ops import msm_bn_cuda as mb
@@ -685,12 +991,18 @@ def main(argv) -> int:
     print(smoke.card_line(), flush=True)
     vm.enable_gpu("cuda")
     main_lib = cb.lib()
-    libs = build_variants([v for v in args.only if v in VARIANTS])
+    libs = build_variants(sorted({v for v in args.only if v in VARIANTS}))
     dev = torch.device("cuda")
     n = 1 << args.log2
     rng = random.Random(20261018)
-    kernels = {VARIANTS[v][0] if v in VARIANTS else "bn_msm_tail"
-               for v in args.only}
+    def kernel_of(v):
+        if v in VARIANTS:
+            return VARIANTS[v][0]
+        if v in WAVES:
+            return "bn2_msm_accumulate"
+        return SPLITS[v][0] if v in SPLITS else "bn2_points"
+
+    kernels = {kernel_of(v) for v in args.only}
     calls = {}
     if kernels & {"bn2_bexp", "bn_comb"}:
         exps = [rng.randrange(ORDER) for _ in range(n)]
@@ -712,29 +1024,74 @@ def main(argv) -> int:
                             generator=torch.Generator().manual_seed(5))
         acc = work[idx.to(dev)].reshape(1, 64, 4096, 12)
         calls["bn_msm_tail"] = lambda: mb.msm_tail(acc)
+    same = {}
+    if kernels & {"bn2_msm_accumulate", "bn2_msm_tail", "bn2_points"}:
+        P = cb2.encode_points(smoke.bn2_points(native, n, rng,
+                                               identity_at=(5,)), dev)[None]
+        sc = [rng.randrange(ORDER) for _ in range(n)]
+        dig2 = torch.from_numpy(mc.packed_digits(native._scalars_to_u64(
+            sc, ORDER), ORDER)[0]).to(dev)[None]
+        S2 = mb2.msm_slices(n)
+        acc2 = mb2.msm_accumulate(P, dig2, S2)
+        calls["bn2_msm_accumulate"] = lambda: mb2.msm_accumulate(P, dig2, S2)
+        calls["bn2_msm_tail"] = lambda: mb2.msm_tail(acc2)
+        calls["bn2_points"] = lambda: mb2.msm_rows(P, dig2)
+        # accumulators of another representation may hold the same points
+        same["bn2_msm_accumulate"] = lambda a, b: torch.equal(*(
+            cb2.normalize_rows(cb2.split_rows(x)) for x in (a, b)))
     want = {k: fn() for k, fn in calls.items()}
-    committed_split = mb.tail_split
+    committed = {mb: mb.tail_split, mb2: mb2.tail_split,
+                 "points": mb2.ACCUM_POINTS_PER_THREAD,
+                 "wave": mb2.TABLE_SM_THREADS}
     out = {}
     for name in args.only:
-        kernel = VARIANTS[name][0] if name in VARIANTS else "bn_msm_tail"
-        swapped = (Swapped(main_lib, ctypes.CDLL(libs[name]))
-                   if name in VARIANTS else main_lib)
+        kernel = kernel_of(name)
+        var = ctypes.CDLL(libs[name]) if name in VARIANTS else None
+        swapped = Swapped(main_lib, var, ONE_LIB.get(name)) if var else main_lib
+        base = Swapped(main_lib, var) if name in ONE_LIB else main_lib
         times = {"committed": [], name: []}
+        clocks = []
         for which in ("committed", name, name, "committed"):
-            cb._lib = swapped if which == name else main_lib
+            cb._lib = swapped if which == name else base
             if name in SPLITS and which == name:
-                mb.tail_split = lambda *a, R=SPLITS[name], **k: R
+                mod = mb if kernel == "bn_msm_tail" else mb2
+                mod.tail_split = lambda *a, R=SPLITS[name][1], **k: R
+            mb2.TABLE_SM_THREADS = (WAVES[name] if which == name
+                                    and name in WAVES else committed["wave"])
+            if name in POINTS:
+                mb2.ACCUM_POINTS_PER_THREAD = (
+                    POINTS[name] if which == name else committed["points"])
+                times[which].append(points_times(torch, mb2, P, dig2,
+                                                 want["bn2_points"],
+                                                 args.reps))
+                continue
             got = calls[kernel]()
-            assert torch.equal(got, want[kernel]), f"{name} differs"
-            times[which].append(smoke.cuda_ms(torch, calls[kernel],
-                                              args.reps))
-            mb.tail_split = committed_split
+            assert which != name or name in NO_ROWS or same.get(
+                kernel, torch.equal)(got, want[kernel]), f"{name} differs"
+            with Clocks() as ck:
+                times[which].append(smoke.cuda_ms(torch, calls[kernel],
+                                                  args.reps))
+            clocks.append(str(ck))
+            mb.tail_split, mb2.tail_split = committed[mb], committed[mb2]
         cb._lib = main_lib
-        out[name] = times
+        mb2.ACCUM_POINTS_PER_THREAD = committed["points"]
+        mb2.TABLE_SM_THREADS = committed["wave"]
+        out.setdefault(name, []).append(times)
+        if name in POINTS:
+            print(f"{name} (K9 alone / K10 alone / both, n={n}): committed "
+                  + " | ".join(" / ".join(f"{x:.3f}" for x in t)
+                               for t in times["committed"])
+                  + " ms, variant " + " | ".join(
+                      " / ".join(f"{x:.3f}" for x in t) for t in times[name])
+                  + " ms (MSM rows equal)", flush=True)
+            continue
         print(f"{name} ({kernel}, n={n}): committed "
+              + ("(from the variant's library) " if name in ONE_LIB else "")
               + " / ".join(f"{t:.3f}" for t in times["committed"])
               + " ms, variant " + " / ".join(f"{t:.3f}" for t in times[name])
-              + " ms (rows equal)", flush=True)
+              + (" ms (a timing probe)" if name in NO_ROWS
+                 else " ms (rows equal)") + "; least SM clock, most power: "
+              + " / ".join(clocks), flush=True)
     result = {"n": n, "variants": out, "kind": torch.cuda.get_device_name(0)}
     if args.parent:
         result["against"] = against(args.parent, args.reps)

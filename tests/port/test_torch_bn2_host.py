@@ -85,19 +85,155 @@ def _digits(k, n, seed):
 
 @pytest.mark.parametrize("n", [1, 7, 40])
 def test_msm_bodies_match_plain(host_lib, n, k):
-    """K9's table launch and accumulation, K10's reduction and Horner."""
+    """K9's table launch and accumulation, K10's reduction and combination."""
     rows = _rows(k, n, n, identity_at=(2,))
     pk, nw = _digits(k, n, n)
-    S = k.mc.slices_for(n)
+    S = k.mb2.msm_slices(n)
     pts = _u64(rows)
-    tbl = np.zeros((n, 8, 24), np.uint64)
+    tbl = np.zeros((n, 8, 16), np.uint64)
+    pre = np.zeros((n, 8, 16), np.uint64)
     acc = np.zeros((nw, S, 24), np.uint64)
-    wsum = np.zeros((nw, 24), np.uint64)
+    part = np.zeros((nw, 24), np.uint64)
     out = np.zeros(24, np.uint64)
-    host_lib.host_bn2_msm(_p(pts), _p(tbl), _p(pk), n, nw, S, _p(acc),
-                          _p(wsum), _p(out))
+    host_lib.host_bn2_msm(_p(pts), _p(tbl), _p(pre), _p(pk), n, nw, S,
+                          _p(acc), _p(part), _p(out))
     plain = k.mb2.msm_plain(rows[None], k.torch.from_numpy(pk)[None])
     assert np.array_equal(out, _u64(plain)[0])
+
+
+SENTINEL = np.uint64(0xFFFFFFFFFFFFFFFF)  # in every row before a call
+
+# K9's table cases: id -> (points, threads G, identity inputs).  Thread g
+# builds and normalizes the entries of the points g, g + G, ...: G < n
+# leaves ragged groups; with G = 3 and identities at 0, 3, 6, ... thread
+# 0's whole group is identities.
+TABLE_CASES = {"1": (1, 1, ()), "7-G7": (7, 7, (2,)), "7-G3": (7, 3, (4,)),
+               "20-G3-identity-group": (20, 3, tuple(range(0, 20, 3))),
+               "20-G6": (20, 6, (0, 19))}
+
+
+def _table_plain(k, rows):
+    """The affine entries K9's first launch must write: m P for m = 1..8
+    of each input row, (x R, y R) in Montgomery form, (0, 0) for the
+    identity."""
+    cb2 = k.cb2
+    mult = k.mb2._multiples(cb2.split_rows(cb2.encode_jacobian_rows(rows)))
+    norm = k.torch.stack([cb2.normalize_rows(m) for m in mult[1:]], dim=1)
+    mont = cb2.encode_jacobian_rows(norm)[..., :16]  # (x R, y R) over Z = R
+    ident = norm[..., 16:].eq(0).all(-1, keepdim=True)
+    return _u64(mont.masked_fill(ident, 0))
+
+
+@pytest.mark.parametrize("case", list(TABLE_CASES))
+def test_table_body_matches_plain(host_lib, case, k):
+    """K9's first launch over all G threads (each group normalized with one
+    inversion) against the plain multiples, normalized: ragged groups, a
+    group of identities, identity inputs and rows with Z != 1; the table
+    and the scratch are filled with a sentinel first."""
+    n, G, ident = TABLE_CASES[case]
+    rows = _rows(k, n, 7 * n + G, identity_at=ident)
+    tbl = np.full((n, 8, 16), SENTINEL)
+    pre = np.full((n, 8, 16), SENTINEL)
+    host_lib.host_bn2_table(_p(_u64(rows)), _p(tbl), _p(pre), n, G)
+    want = _table_plain(k, rows)
+    assert np.array_equal(tbl, want)
+    assert all(not tbl[i].any() for i in ident)
+
+
+# K9's accumulation cases: id -> (n, batches, slice count S).  Digit
+# columns: slice 1 of batch 0 has only zero digits, point 3 of every batch
+# is all zero digits, point 2 is the identity, and digits 8 and -7 occur.
+ACCUM_CASES = {"9-B1-S3": (9, 1, 3), "13-B2-S4": (13, 2, 4),
+               "40-B2-S2": (40, 2, 2)}
+
+
+@pytest.mark.parametrize("case", list(ACCUM_CASES))
+def test_accum_body_matches_plain(host_lib, case, k):
+    """K9's accumulation over its table (mixed adds, identity entries and
+    zero digits skipped) against msm_accumulate_plain, the accumulators
+    normalized, filled with a sentinel first."""
+    n, B, S = ACCUM_CASES[case]
+    rows = k.torch.stack([_rows(k, n, 11 * n + b, identity_at=(2,))
+                          for b in range(B)])
+    rng = random.Random(n)
+    sc = [[rng.randrange(ORDER) for _ in range(n)] for _ in range(B)]
+    for b in range(B):
+        sc[b][3] = 0
+        sc[b][0] = 8 * 16 ** 5 - 7  # digits -7, 0, 0, 0, 0, 8
+    sc[0][1::S] = [0] * len(sc[0][1::S])
+    pk = np.stack([_digits_of(k, s) for s in sc])
+    nw = 2 * pk.shape[1]
+    tbl = np.zeros((B, n, 8, 16), np.uint64)
+    pre = np.zeros((B, n, 8, 16), np.uint64)
+    host_lib.host_bn2_table(_p(_u64(rows)), _p(tbl), _p(pre), B * n, 5)
+    acc = np.full((B, nw, S, 24), SENTINEL)
+    host_lib.host_bn2_msm_accum(_p(tbl), _p(pk), B, n, nw, S, _p(acc))
+    plain = k.mb2.msm_accumulate_plain(rows, k.torch.from_numpy(pk), S)
+    norm = lambda a: _u64(k.cb2.normalize_rows(k.cb2.split_rows(a)))  # noqa
+    assert np.array_equal(norm(k.torch.from_numpy(acc.view(np.int64))),
+                          norm(plain))
+
+
+def _digits_of(k, scalars):
+    pk, _ = k.mc.packed_digits(native._scalars_to_u64(scalars, ORDER), ORDER)
+    return pk
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+def test_coop_group_ops_match_plain(host_lib, lanes, k):
+    """K10's group operations with their three levels of products spread
+    over 1, 2, 4, 8, 16 or 32 lanes, the lanes run one after another, against the
+    plain RCB15 law on the same working rows, word for word: random
+    points, the identity, P + P and P + (-P)."""
+    cb2 = k.cb2
+    rows = cb2.encode_jacobian_rows(_rows(k, 6, 11, identity_at=(4,)))
+    neg = cb2.join_rows(cb2.neg_where(k.torch.ones(1, dtype=k.torch.bool),
+                                      cb2.split_rows(rows[:1])))
+    pairs = [(0, 1), (2, 3), (4, 5), (5, 4), (4, 4), (1, 1), (0, "neg")]
+    for i, j in pairs:
+        p = rows[i:i + 1]
+        q = neg if j == "neg" else rows[j:j + 1]
+        want = {0: cb2.add(cb2.split_rows(p), cb2.split_rows(q)),
+                1: cb2.dbl(cb2.split_rows(p))}
+        for op in (0, 1):
+            out = np.full(24, SENTINEL)
+            host_lib.host_bn2_coop(op, lanes, _p(_u64(p)), _p(_u64(q)),
+                                   _p(out))
+            assert np.array_equal(out, _u64(cb2.join_rows(want[op]))[0]), (
+                op, i, j)
+
+
+# K10's cases: id -> (B, nw, S, R, lanes L of the windows' sums, lanes Lc
+# of the Horners and the shift, window groups P, the window whose
+# accumulators are all the identity or None).  S mod R runs up to R - 1
+# (11 mod 4, 8 mod 3, 7 mod 4), S = 2 with R = 4 leaves two empty chunks,
+# P = 8 over nw = 2 leaves empty groups.
+TAIL_CASES = {"64-L8-16-P8": (1, 64, 11, 4, 8, 16, 8, 5),
+              "B3-8-L4-P4": (3, 8, 8, 3, 4, 4, 4, 0),
+              "B3-2-L2-P8": (3, 2, 5, 2, 2, 2, 8, None),
+              "8-L1-P1": (1, 8, 4, 4, 1, 1, 1, 7),
+              "2-L8-32-P4": (1, 2, 7, 4, 8, 32, 4, 1),
+              "8-L8-16-P8-S2-R4": (1, 8, 2, 4, 8, 16, 8, None),
+              "64-L4-8-P1-R1": (1, 64, 2, 1, 4, 8, 1, 63)}
+
+
+@pytest.mark.parametrize("case", list(TAIL_CASES))
+def test_msm_tail_bodies_match_plain(host_lib, case, k):
+    """K10's reduce chunks and its combination (each window's partials,
+    the window groups' Horners, the shift and add, each step's lanes run one
+    after another) against msm_tail_plain, the partials and the output
+    filled with a sentinel first."""
+    B, nw, S, R, L, Lc, P, ident = TAIL_CASES[case]
+    rows = k.cb2.encode_jacobian_rows(_rows(k, B * nw * S, 3 * nw + S,
+                                            identity_at=(1,)))
+    acc = rows.reshape(B, nw, S, 24).clone()
+    if ident is not None:
+        acc[:, ident] = k.torch.tensor(k.cb2.IDENTITY_MONT_ROW)
+    part = np.full((B, nw, R, 24), SENTINEL)
+    out = np.full((B, 24), SENTINEL)
+    host_lib.host_bn2_msm_tail(_p(_u64(acc)), _p(part), _p(out), B, nw, S,
+                               R, L, Lc, P)
+    assert np.array_equal(out, _u64(k.mb2.msm_tail_plain(acc)))
 
 
 # K11's cases: id -> (n, threads G, table).  Thread g sums and normalizes
@@ -126,7 +262,6 @@ def _rescaled(k, table, seed):
         pts[i] = BNTwistPoint(q.x * lam * lam, q.y * lam * lam * lam, lam,
                               check=False)
     return k.cb2.encode_points(pts, "cpu")
-SENTINEL = np.uint64(0xFFFFFFFFFFFFFFFF)  # in every row before a call
 
 
 @pytest.mark.parametrize("case", list(BEXP_CASES))

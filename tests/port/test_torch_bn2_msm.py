@@ -101,10 +101,18 @@ def test_encoding_of_jacobian_points(k):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("n", [1, 17, 64])
+@pytest.mark.parametrize("n", [1, 17, 64, 70])
 def test_msm_plain_matches_reference(n, k):
+    """The plain K9 + K10 at K9's slice count (msm_slices); at n = 70 (more
+    than one slice) slice 1's digits are all zero and so are point 9's,
+    besides the identity input and the edge scalars."""
     pts = _ref_points(n, n, identity_at=(3,))
     sc = _scalars(n, n + 1)
+    if n == 70:
+        S = k.mb2.msm_slices(n)
+        assert S > 1
+        sc[1::S] = [0] * len(sc[1::S])
+        sc[9] = 0
     got = k.mb2.msm([_port(p) for p in pts], sc)
     expect = ref_native.bn2_msm(pts, sc)
     if n == 1:

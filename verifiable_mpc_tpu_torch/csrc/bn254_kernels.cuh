@@ -29,6 +29,7 @@
 
 #pragma once
 
+#include "coop.cuh"
 #include "digits.cuh"
 #include "fp254.cuh"
 
@@ -324,21 +325,11 @@ FE_FN void bn_msm_accum_one(const uint64_t *tbl, const uint8_t *digits,
 // ---------------------------------------------------------------------------
 //
 // A group operation runs on a group of L lanes (1, 2 or 4; bn_msm_tail.cu's
-// TAIL_LANES) that share one g1_coop in shared memory.  An add (RCB15
-// Algorithm 7) has two levels of 6 independent products, a doubling
+// TAIL_LANES) that share one g1_coop in shared memory (coop.cuh).  An add
+// (RCB15 Algorithm 7) has two levels of 6 independent products, a doubling
 // (Algorithm 9) two levels of 4: lane l computes the level's products
-// k = l, l + L, ... (every lane the same fp_mul on operands it picks by k),
-// writes them to the slots, and the group meets at a barrier; the linear
-// steps between the levels run in every lane alike.  Each step below is a
-// function of (slots, lane, L) that reads only what earlier steps wrote:
-// the kernel runs a step in all lanes at once and then __syncwarp, the host
-// harness (host_check.cc) runs the lanes one after another (CoopLanes::run).
-
-#if defined(__CUDACC__)
-#define FE_MEMBER __host__ __device__ __forceinline__
-#else
-#define FE_MEMBER inline
-#endif
+// k = l, l + L, ... (every lane the same fp_mul on operands it picks by k);
+// the linear steps between the levels run in every lane alike.
 
 // one lane group's shared slots: v holds the point (X, Y, Z), an add's
 // other operand and 0 (v[6]); m the products of an operation's two levels
@@ -347,29 +338,10 @@ struct g1_coop {
   fp m[2][6];
 };
 
-// the lanes of one group: lane, L and the group's warp mask (device)
-struct CoopLanes {
-  int lane, L;
-  unsigned mask;
-  // step(l) for every lane l of the group, then the group's barrier
-  template <class F>
-  FE_MEMBER void run(F step) const {
-#if defined(__CUDA_ARCH__)
-    step(lane);
-    __syncwarp(mask);
-#else
-    for (int l = 0; l < L; l++) step(l);
-#endif
-  }
-};
-
 // r = c ? a : r, without a branch
 FE_FN void fp_pick(fp &r, bool c, const fp &a) {
   for (int i = 0; i < 8; i++) r.v[i] = c ? a.v[i] : r.v[i];
 }
-
-// the nibble k of a table of small indices
-FE_FN int nib(uint32_t table, int k) { return (table >> (4 * k)) & 15; }
 
 // doubling, level 1: Y Y, Y Z, Z Z, X Y
 FE_FN void coop_dbl_lv1(g1_coop &s, int lane, int L) {
@@ -508,76 +480,13 @@ FE_FN void coop_add(const Lanes &ex, g1_coop &s) {
   ex.run([&](int l) { coop_add_fin(s, l, ex.L); });
 }
 
-// window w's sum: its R partials part [R][12] (working rows), summed in
-// order into v[0..2] and copied to wsum [3]
-template <class Lanes>
-FE_FN void bn_tail_window(const Lanes &ex, g1_coop &s,
-                          const uint64_t *part, int R, fp *wsum) {
-  ex.run([&](int l) {
-    coop_load_row(s.v, part, l, ex.L);
-    if (l == 0) fp_zero(s.v[6]);
-  });
-  for (int r = 1; r < R; r++) {
-    ex.run([&](int l) { coop_load_row(s.v + 3, part + (size_t)r * 12, l,
-                                      ex.L); });
-    coop_add(ex, s);
-  }
-  ex.run([&](int l) { coop_copy(wsum, s.v, l, ex.L); });
-}
-
-// the windows [a, b) of group j of P (ceil(nw / P) windows each, the last
-// groups shorter or empty)
-FE_FN void bn_tail_span(int j, int nw, int P, int &a, int &b) {
-  int k = (nw + P - 1) / P;
-  a = j * k < nw ? j * k : nw;
-  b = a + k < nw ? a + k : nw;
-}
-
-// group j's Horner over its windows (most significant first) of the
-// window sums wsum [nw][3]: v[0..2] = sum_{w in [a, b)} 16^(b-1-w) S_w (an
-// empty group does nothing: bn_tail_shift stops before it)
-template <class Lanes>
-FE_FN void bn_tail_group(const Lanes &ex, g1_coop &s, const fp (*wsum)[3],
-                         int j, int nw, int P) {
-  int a, b;
-  bn_tail_span(j, nw, P, a, b);
-  if (a == b) return;
-  ex.run([&](int l) {
-    coop_copy(s.v, wsum[a], l, ex.L);
-    if (l == 0) fp_zero(s.v[6]);
-  });
-  for (int w = a + 1; w < b; w++) {
-    for (int i = 0; i < 4; i++) coop_dbl(ex, s);
-    ex.run([&](int l) { coop_copy(s.v + 3, wsum[w], l, ex.L); });
-    coop_add(ex, s);
-  }
-}
-
-// group 0 after every group's Horner: shift and add the groups' sums
-// (sh[j].v[0..2] of group j), 16^(nw - b_j) H_j, into sh[0], then its
-// normalized result row (lane 0; out [12])
-template <class Lanes>
-FE_FN void bn_tail_shift(const Lanes &ex, g1_coop *sh, int nw, int P,
-                         uint64_t *out) {
-  int a, b, prev;
-  bn_tail_span(0, nw, P, a, prev);
-  for (int j = 1; j < P; j++) {
-    bn_tail_span(j, nw, P, a, b);
-    if (a == b) break;
-    for (int i = 0; i < 4 * (b - prev); i++) coop_dbl(ex, sh[0]);
-    ex.run([&](int l) { coop_copy(sh[0].v + 3, sh[j].v, l, ex.L); });
-    coop_add(ex, sh[0]);
-    prev = b;
-  }
-  ex.run([&](int l) {
-    if (l == 0) {
-      g1p h;
-      h.X = sh[0].v[0];
-      h.Y = sh[0].v[1];
-      h.Z = sh[0].v[2];
-      g1_store_normalized(out, h);
-    }
-  });
+// the normalized result row of v[0..2] (out [12])
+FE_FN void coop_store_normalized(uint64_t *out, const g1_coop &s) {
+  g1p h;
+  h.X = s.v[0];
+  h.Y = s.v[1];
+  h.Z = s.v[2];
+  g1_store_normalized(out, h);
 }
 
 // K7 body (B3's BN instance, msm_pallas._make_fold_kernel): gl^c * gr for

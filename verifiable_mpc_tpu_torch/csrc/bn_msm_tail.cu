@@ -14,7 +14,7 @@
 //   lanes first sum each window's R partials (a group per window), then
 //   TAIL_GROUPS groups run a Horner each over a run of ceil(nw / P)
 //   windows, then group 0 shifts and adds the groups' sums and normalizes
-//   (bn254_kernels.cuh: bn_tail_window, bn_tail_group, bn_tail_shift).
+//   (coop.cuh: tail_combine over bn254_kernels.cuh's g1_coop steps).
 //
 // Bound: integer multiplies by the card's throughput, but the combination
 // is one chain of dependent products whatever the card's width: about 252
@@ -74,21 +74,8 @@ __global__ void __launch_bounds__(TAIL_WINDOWS * TAIL_LANES)
                           int R) {
   __shared__ g1_coop sh[TAIL_WINDOWS];
   __shared__ fp wsum[TAIL_WINDOWS][3];
-  int b = blockIdx.x;
-  int grp = threadIdx.x / TAIL_LANES;
-  CoopLanes ex;
-  ex.lane = threadIdx.x % TAIL_LANES;
-  ex.L = TAIL_LANES;
-  ex.mask = ((1u << TAIL_LANES) - 1)
-            << (threadIdx.x % 32 / TAIL_LANES * TAIL_LANES);
-  if (grp < nw)
-    bn_tail_window(ex, sh[grp], part + (size_t)(b * nw + grp) * R * 12, R,
-                   wsum[grp]);
-  __syncthreads();
-  if (grp < TAIL_GROUPS) bn_tail_group(ex, sh[grp], wsum, grp, nw,
-                                       TAIL_GROUPS);
-  __syncthreads();
-  if (grp == 0) bn_tail_shift(ex, sh, nw, TAIL_GROUPS, out + (size_t)b * 12);
+  tail_combine<TAIL_LANES, TAIL_LANES, TAIL_GROUPS>(sh, wsum, part, out, nw,
+                                                    R);
 }
 
 // acc [B][nw][S][12] -> part [B][nw][R][12] (scratch) -> out [B][12]

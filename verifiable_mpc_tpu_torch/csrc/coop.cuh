@@ -1,0 +1,156 @@
+// The lane groups of the MSM tails' combinations (K6 over BN256 G1 in
+// bn254_kernels.cuh, K10 over the twist in bn2_kernels.cuh), and the
+// combination's steps, which both tails share.
+//
+// A group operation runs on a group of L lanes that share slots in shared
+// memory: lane l computes the products k = l, l + L, ... of a level of
+// independent products, writes them to the slots, and the group meets at a
+// barrier.  Each step is a function of (slots, lane, L) that reads only
+// what earlier steps wrote: the kernel runs a step in all lanes at once and
+// then __syncwarp, the host harness (host_check.cc) runs the lanes one
+// after another (CoopLanes::run).
+
+#pragma once
+
+#include "digits.cuh"
+
+#if defined(__CUDACC__)
+#define FE_MEMBER __host__ __device__ __forceinline__
+#else
+#define FE_MEMBER inline
+#endif
+
+// the lanes of one group: lane, L and the group's warp mask (device)
+struct CoopLanes {
+  int lane, L;
+  unsigned mask;
+  // step(l) for every lane l of the group, then the group's barrier
+  template <class F>
+  FE_MEMBER void run(F step) const {
+#if defined(__CUDA_ARCH__)
+    step(lane);
+    __syncwarp(mask);
+#else
+    for (int l = 0; l < L; l++) step(l);
+#endif
+  }
+};
+
+// the nibble k of a table of small indices (of up to 8 or 16 entries)
+FE_FN int nib(uint32_t table, int k) { return (table >> (4 * k)) & 15; }
+FE_FN int nib64(uint64_t table, int k) { return (int)(table >> (4 * k)) & 15; }
+
+// the windows [a, b) of group j of P (ceil(nw / P) windows each, the last
+// groups shorter or empty)
+FE_FN void tail_span(int j, int nw, int P, int &a, int &b) {
+  int k = (nw + P - 1) / P;
+  a = j * k < nw ? j * k : nw;
+  b = a + k < nw ? a + k : nw;
+}
+
+#if defined(__CUDACC__)
+// this thread's place in a lane group of L lanes (L divides 32)
+__device__ __forceinline__ CoopLanes coop_lanes(int L) {
+  CoopLanes ex;
+  ex.lane = threadIdx.x % L;
+  ex.L = L;
+  ex.mask = (unsigned)((1ull << L) - 1) << (threadIdx.x % 32 / L * L);
+  return ex;
+}
+#endif
+
+// ---------------------------------------------------------------------------
+// The combination of an MSM tail, over a curve's lane-group slots
+// ---------------------------------------------------------------------------
+//
+// A curve's slots (g1_coop over fp, g2_coop over fp2) hold v[7]: the point
+// (X, Y, Z) in v[0..2], an add's other operand in v[3..5] and 0 in v[6].
+// Its header gives, for its slots and field elements, coop_load_row (three
+// slots <- a working row), coop_copy (three slots <- three slots), coop_add
+// (v[0..2] += v[3..5]), coop_dbl (v[0..2] *= 2) and coop_store_normalized
+// (the normalized result row of v[0..2], one lane); the steps below find
+// them where a kernel or the host harness instantiates them.  A working row
+// is the three coordinates' words.
+
+// window w's sum: its R partials part [R][row] (working rows), summed in
+// order into v[0..2] and copied to wsum [3]
+template <class Lanes, class Slots, class E>
+FE_FN void tail_window(const Lanes &ex, Slots &s, const uint64_t *part,
+                       int R, E *wsum) {
+  const size_t row = 3 * sizeof(E) / sizeof(uint64_t);
+  ex.run([&](int l) {
+    coop_load_row(s.v, part, l, ex.L);
+    if (l == 0) s.v[6] = {};
+  });
+  for (int r = 1; r < R; r++) {
+    ex.run([&](int l) { coop_load_row(s.v + 3, part + r * row, l, ex.L); });
+    coop_add(ex, s);
+  }
+  ex.run([&](int l) { coop_copy(wsum, s.v, l, ex.L); });
+}
+
+// group j's Horner over its windows (most significant first) of the
+// window sums wsum [nw][3]: v[0..2] = sum_{w in [a, b)} 16^(b-1-w) S_w (an
+// empty group does nothing: tail_shift stops before it)
+template <class Lanes, class Slots, class Sums>
+FE_FN void tail_group(const Lanes &ex, Slots &s, Sums wsum, int j, int nw,
+                      int P) {
+  int a, b;
+  tail_span(j, nw, P, a, b);
+  if (a == b) return;
+  ex.run([&](int l) {
+    coop_copy(s.v, wsum[a], l, ex.L);
+    if (l == 0) s.v[6] = {};
+  });
+  for (int w = a + 1; w < b; w++) {
+    for (int i = 0; i < 4; i++) coop_dbl(ex, s);
+    ex.run([&](int l) { coop_copy(s.v + 3, wsum[w], l, ex.L); });
+    coop_add(ex, s);
+  }
+}
+
+// group 0 after every group's Horner: shift and add the groups' sums
+// (sh[j].v[0..2] of group j), 16^(nw - b_j) H_j, into sh[0], then its
+// normalized result row (lane 0)
+template <class Lanes, class Slots>
+FE_FN void tail_shift(const Lanes &ex, Slots *sh, int nw, int P,
+                      uint64_t *out) {
+  int a, b, prev;
+  tail_span(0, nw, P, a, prev);
+  for (int j = 1; j < P; j++) {
+    tail_span(j, nw, P, a, b);
+    if (a == b) break;
+    for (int i = 0; i < 4 * (b - prev); i++) coop_dbl(ex, sh[0]);
+    ex.run([&](int l) { coop_copy(sh[0].v + 3, sh[j].v, l, ex.L); });
+    coop_add(ex, sh[0]);
+    prev = b;
+  }
+  ex.run([&](int l) {
+    if (l == 0) coop_store_normalized(out, sh[0]);
+  });
+}
+
+#if defined(__CUDACC__)
+// the combination kernel's body, for batch blockIdx.x: part [B][nw][R][row]
+// -> out [B][row].  The groups of L lanes sum each window's R partials (a
+// group per window, sh[nw] and wsum[nw][3] in shared memory), then P groups
+// of Lc lanes run a Horner each over a run of ceil(nw / P) windows, then
+// group 0 shifts, adds and normalizes.
+template <int L, int Lc, int P, class Slots, class E>
+__device__ __forceinline__ void tail_combine(Slots *sh, E (*wsum)[3],
+                                             const uint64_t *part,
+                                             uint64_t *out, int nw, int R) {
+  const size_t row = 3 * sizeof(E) / sizeof(uint64_t);
+  int grp = threadIdx.x / L;
+  if (grp < nw)
+    tail_window(coop_lanes(L), sh[grp],
+                part + (size_t)(blockIdx.x * nw + grp) * R * row, R,
+                wsum[grp]);
+  __syncthreads();
+  grp = threadIdx.x / Lc;
+  CoopLanes ex = coop_lanes(Lc);
+  if (grp < P) tail_group(ex, sh[grp], wsum, grp, nw, P);
+  __syncthreads();
+  if (grp == 0) tail_shift(ex, sh, nw, P, out + blockIdx.x * row);
+}
+#endif

@@ -104,15 +104,23 @@ FE_FN void fp2_sq(fp2 &r, const fp2 &a) {
   fp_add(r.c1, m2, m2);
 }
 
-// times 3 b' = 9 / xi in Montgomery form (_b3mul2): Karatsuba against the
-// constant's parts k0, k1 and k0 + k1 mod p.  3 products.
+// the parts of 3 b' = 9 / xi in Montgomery form: k0, k1 and k0 + k1 mod p
+#define FP2_B3_K0                                                           \
+  {{0x62409d6eu, 0xfb350956u, 0xa346e0e1u, 0xb406d934u, 0xec84376au,        \
+    0x12138807u, 0x1dfd434fu, 0x3ae3914bu}}
+#define FP2_B3_K1                                                           \
+  {{0xa942a853u, 0x5f0d365cu, 0xd47a46e9u, 0x13718fdeu, 0x7c558c3du,        \
+    0x32c976e5u, 0xb98cc18eu, 0x1c45d032u}}
+#define FP2_B3_K01                                                          \
+  {{0x0b8345c1u, 0x5a423fb3u, 0x77c127cbu, 0xc7786913u, 0x68d9c3a7u,        \
+    0x44dcfeedu, 0xd78a04ddu, 0x5729617du}}
+
+// times 3 b' (_b3mul2): Karatsuba against the constant's parts k0, k1 and
+// k0 + k1.  3 products.
 FE_FN void fp2_mul_b3(fp2 &r, const fp2 &a) {
-  const fp k0 = {{0x62409d6eu, 0xfb350956u, 0xa346e0e1u, 0xb406d934u,
-                  0xec84376au, 0x12138807u, 0x1dfd434fu, 0x3ae3914bu}};
-  const fp k1 = {{0xa942a853u, 0x5f0d365cu, 0xd47a46e9u, 0x13718fdeu,
-                  0x7c558c3du, 0x32c976e5u, 0xb98cc18eu, 0x1c45d032u}};
-  const fp k01 = {{0x0b8345c1u, 0x5a423fb3u, 0x77c127cbu, 0xc7786913u,
-                   0x68d9c3a7u, 0x44dcfeedu, 0xd78a04ddu, 0x5729617du}};
+  const fp k0 = FP2_B3_K0;
+  const fp k1 = FP2_B3_K1;
+  const fp k01 = FP2_B3_K01;
   fp t0, t1, t2, s;
   fp_add(s, a.c0, a.c1);
   fp_mul(t2, s, k01);
@@ -121,6 +129,38 @@ FE_FN void fp2_mul_b3(fp2 &r, const fp2 &a) {
   fp_sub(t2, t2, t0);
   fp_sub(r.c1, t2, t1);
   fp_sub(r.c0, t0, t1);
+}
+
+// Karatsuba's parts of a product: r = a.c0, a.c1, a.c0 + a.c1 or a.c0 - a.c1
+// for part 0, 1, 2 or 3 (a product's three base-field products take parts
+// 0, 1 and 2 of both operands; a square's two take 2 and 3, then 0 and 1)
+FE_FN void fp2_part(fp &r, const fp2 &a, int part) {
+  if (part == 0) {
+    r = a.c0;
+  } else if (part == 1) {
+    r = a.c1;
+  } else if (part == 2) {
+    fp_add(r, a.c0, a.c1);
+  } else {
+    fp_sub(r, a.c0, a.c1);
+  }
+}
+
+// part 0, 1 or 2 of 3 b' (the constant operand of fp2_mul_b3's products)
+FE_FN void fp2_b3_part(fp &r, int part) {
+  const fp k0 = FP2_B3_K0;
+  const fp k1 = FP2_B3_K1;
+  const fp k01 = FP2_B3_K01;
+  r = part == 0 ? k0 : part == 1 ? k1 : k01;
+}
+
+// a product from its three base-field products m = (a0 b0, a1 b1,
+// (a0 + a1)(b0 + b1)): (m0 - m1, m2 - m0 - m1); r must not overlap m
+FE_FN void fp2_karatsuba(fp2 &r, const fp *m) {
+  fp t;
+  fp_sub(t, m[2], m[0]);
+  fp_sub(r.c1, t, m[1]);
+  fp_sub(r.c0, m[0], m[1]);
 }
 
 // Montgomery form -> standard form, part by part

@@ -19,6 +19,29 @@
 #include "ed25519_kernels.cuh"
 #include "probe_ops.cuh"
 
+// the combination of K6 or K10 (coop.cuh's tail steps) for each batch:
+// part [B][nw][R][row] -> out [B][row], L lanes a group of the windows'
+// sums, Lc lanes a group of the Horners and the shift, P window groups;
+// the groups run one after another between the kernel's block barriers,
+// and each group step lane by lane (CoopLanes::run)
+template <class Slots, class E>
+static void host_tail_combine(const uint64_t *part, uint64_t *out, int B,
+                              int nw, int R, int L, int Lc, int P) {
+  const size_t row = 3 * sizeof(E) / sizeof(uint64_t);
+  Slots *sh = new Slots[64];
+  E(*wsum)[3] = new E[64][3];
+  CoopLanes ex = {0, L, 0}, ec = {0, Lc, 0};
+  for (int b = 0; b < B; b++) {
+    for (int g = 0; g < nw; g++)
+      tail_window(ex, sh[g], part + (size_t)(b * nw + g) * R * row, R,
+                  wsum[g]);
+    for (int g = 0; g < P; g++) tail_group(ec, sh[g], wsum, g, nw, P);
+    tail_shift(ec, sh, nw, P, out + b * row);
+  }
+  delete[] sh;
+  delete[] wsum;
+}
+
 extern "C" {
 
 // K1's first launch: n points' rows [n][16] -> tbl [n][8][16]
@@ -205,9 +228,7 @@ void host_bn_msm_accum(const uint64_t *tbl, const uint8_t *digits, int B,
 
 // K6 with R chunks a window, L lanes a group and P window groups:
 // acc [B][nw][S][12] -> part [B][nw][R][12] (scratch) -> out [B][12].  A
-// chunk's partial is summed in order; the combination runs its groups one
-// after another between the kernel's block barriers, and each group step
-// lane by lane (CoopLanes::run)
+// chunk's partial is summed in order, then host_tail_combine
 void host_bn_msm_tail(const uint64_t *acc, uint64_t *part, uint64_t *out,
                       int B, int nw, int S, int R, int L, int P) {
   int chunk = (S + R - 1) / R;
@@ -224,18 +245,7 @@ void host_bn_msm_tail(const uint64_t *acc, uint64_t *part, uint64_t *out,
         }
         g1_store(part + ((size_t)(b * nw + w) * R + r) * 12, sum);
       }
-  g1_coop *sh = new g1_coop[64];
-  fp(*wsum)[3] = new fp[64][3];
-  CoopLanes ex = {0, L, 0};
-  for (int b = 0; b < B; b++) {
-    for (int g = 0; g < nw; g++)
-      bn_tail_window(ex, sh[g], part + (size_t)(b * nw + g) * R * 12, R,
-                     wsum[g]);
-    for (int g = 0; g < P; g++) bn_tail_group(ex, sh[g], wsum, g, nw, P);
-    bn_tail_shift(ex, sh, nw, P, out + (size_t)b * 12);
-  }
-  delete[] sh;
-  delete[] wsum;
+  host_tail_combine<g1_coop, fp>(part, out, B, nw, R, L, L, P);
 }
 
 // one of K6's group operations on L lanes, run lane by lane: out = p + q
@@ -340,28 +350,81 @@ void host_bn2_encode(const uint64_t *in, uint64_t *out, int n) {
     bn2_encode_one(in + (size_t)i * BN2_ROW, out + (size_t)i * BN2_ROW);
 }
 
-// K9 then K10 for one batch: pts [n][24] input rows, tbl [n][8][24],
-// digits [nw/2][n] -> out [24]
-void host_bn2_msm(const uint64_t *pts, uint64_t *tbl, const uint8_t *digits,
-                  int n, int nw, int S, uint64_t *acc, uint64_t *wsum,
-                  uint64_t *out) {
-  for (int i = 0; i < n; i++)
-    bn2_table_one(pts + (size_t)i * BN2_ROW, tbl + (size_t)i * 8 * BN2_ROW);
-  for (int w = 0; w < nw; w++)
-    for (int s = 0; s < S; s++)
-      bn2_msm_accum_one(tbl, digits, acc + ((size_t)w * S + s) * BN2_ROW, n,
-                        w, s, S);
-  for (int w = 0; w < nw; w++) {
-    g2p sum;
-    g2_identity(sum);
-    for (int s = 0; s < S; s++) {
-      g2p p;
-      g2_load(p, acc + ((size_t)w * S + s) * BN2_ROW);
-      g2_add(sum, sum, p);
-    }
-    g2_store(wsum + (size_t)w * BN2_ROW, sum);
+// K9's first two launches, the second with G threads: pts [rows][24]
+// input rows -> tbl [rows][8][16] affine entries, pre [rows][8][16] scratch
+void host_bn2_table(const uint64_t *pts, uint64_t *tbl, uint64_t *pre,
+                    long long rows, int G) {
+  for (long long i = 0; i < rows; i++)
+    bn2_table_one(pts + i * BN2_ROW, tbl + i * 8 * BN2_ENTRY,
+                  pre + i * 8 * BN2_ENTRY);
+  for (int g = 0; g < G; g++) bn2_table_norm_group(tbl, pre, rows, g, G);
+}
+
+// K9's second launch: tbl [B][n][8][16], digits [B][nw/2][n] ->
+// acc [B][nw][S][24]
+void host_bn2_msm_accum(const uint64_t *tbl, const uint8_t *digits, int B,
+                        int n, int nw, int S, uint64_t *acc) {
+  for (int b = 0; b < B; b++)
+    for (int w = 0; w < nw; w++)
+      for (int s = 0; s < S; s++)
+        bn2_msm_accum_one(tbl + (size_t)b * n * 8 * BN2_ENTRY,
+                          digits + (size_t)b * (nw / 2) * n,
+                          acc + ((size_t)(b * nw + w) * S + s) * BN2_ROW, n,
+                          w, s, S);
+}
+
+// K10 with R chunks a window, L lanes a group of the windows' sums, Lc
+// lanes a group of the Horners and the shift, and P window groups, as
+// host_bn_msm_tail: acc [B][nw][S][24] -> part [B][nw][R][24] (scratch) ->
+// out [B][24]
+void host_bn2_msm_tail(const uint64_t *acc, uint64_t *part, uint64_t *out,
+                       int B, int nw, int S, int R, int L, int Lc, int P) {
+  int chunk = (S + R - 1) / R;
+  for (int b = 0; b < B; b++)
+    for (int w = 0; w < nw; w++)
+      for (int r = 0; r < R; r++) {
+        g2p sum;
+        g2_identity(sum);
+        for (int s = r * chunk; s < S && s < (r + 1) * chunk; s++) {
+          g2p p;
+          g2_load(p, acc + ((size_t)(b * nw + w) * S + s) * BN2_ROW);
+          g2_add(sum, sum, p);
+        }
+        g2_store(part + ((size_t)(b * nw + w) * R + r) * BN2_ROW, sum);
+      }
+  host_tail_combine<g2_coop, fp2>(part, out, B, nw, R, L, Lc, P);
+}
+
+// one of K10's group operations on L lanes, run lane by lane: out = p + q
+// (op 0) or 2 p (op 1); working rows [24]
+void host_bn2_coop(int op, int L, const uint64_t *p, const uint64_t *q,
+                   uint64_t *out) {
+  g2_coop s;
+  CoopLanes ex = {0, L, 0};
+  coop_load_row(s.v, p, 0, 1);
+  coop_load_row(s.v + 3, q, 0, 1);
+  fp2_zero(s.v[6]);
+  if (op == 0) {
+    coop_add(ex, s);
+  } else {
+    coop_dbl(ex, s);
   }
-  bn2_msm_horner_one(wsum, out, nw);
+  g2p r;
+  r.X = s.v[0];
+  r.Y = s.v[1];
+  r.Z = s.v[2];
+  g2_store(out, r);
+}
+
+// K9 then K10 for one batch: pts [n][24] input rows, tbl and pre
+// [n][8][16], digits [nw/2][n] -> out [24] (part [nw][24]: K10's
+// partials at R = 1)
+void host_bn2_msm(const uint64_t *pts, uint64_t *tbl, uint64_t *pre,
+                  const uint8_t *digits, int n, int nw, int S, uint64_t *acc,
+                  uint64_t *part, uint64_t *out) {
+  host_bn2_table(pts, tbl, pre, n, n < 3 ? n : 3);
+  host_bn2_msm_accum(tbl, digits, 1, n, nw, S, acc);
+  host_bn2_msm_tail(acc, part, out, 1, nw, S, 1, 8, 16, 8);
 }
 
 // K11 with G threads: table [nw*9][24] input rows, work [nw*9][24],

@@ -24,7 +24,7 @@ SOURCES = ("msm_accum.cu", "msm_tail.cu", "fold.cu", "comb.cu",
            "bn2_msm_accum.cu", "bn2_msm_tail.cu", "bn2_bexp.cu",
            "bn2_fold.cu", "bucket_accum.cu", "bucket_reduce.cu", "bexp.cu",
            "ed_add_mont.cu", "probe_vpu.cu", "probe_carrychain.cu")
-HEADERS = ("fe25519.cuh", "ed25519_kernels.cuh", "fp254.cuh",
+HEADERS = ("fe25519.cuh", "ed25519_kernels.cuh", "fp254.cuh", "coop.cuh",
            "bn254_kernels.cuh", "fp2_254.cuh", "bn2_kernels.cuh",
            "digits.cuh", "launch.cuh", "probe_ops.cuh")
 NVCC_FLAGS = [
@@ -76,9 +76,10 @@ def lib():
         so.vmpc_cu_bn_comb_norm.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp,
                                             vp]
         so.vmpc_cu_bn_comb_resident.argtypes = []
-        so.vmpc_cu_bn2_msm_accum.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
-                                             vp]
-        so.vmpc_cu_bn2_msm_tail.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+        so.vmpc_cu_bn2_msm_accum.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
+                                             ci, ci, vp]
+        so.vmpc_cu_bn2_table_resident.argtypes = []
+        so.vmpc_cu_bn2_msm_tail.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
         so.vmpc_cu_bn2_bexp.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp, vp]
         so.vmpc_cu_bn2_bexp_resident.argtypes = []
         so.vmpc_cu_bn2_fold_norm.argtypes = [vp, vp, vp, vp, ci, vp, ci, vp]
@@ -106,7 +107,8 @@ def lib():
                    so.vmpc_cu_probe_vpu_resident,
                    so.vmpc_cu_probe_carrychain_resident,
                    so.vmpc_cu_fold_resident, so.vmpc_cu_bn_comb_resident,
-                   so.vmpc_cu_bn2_bexp_resident):
+                   so.vmpc_cu_bn2_bexp_resident,
+                   so.vmpc_cu_bn2_table_resident):
             fn.restype = ci
         _lib = so
     return _lib

@@ -9,7 +9,7 @@ source each, over ``csrc/fp2_254.cuh`` and ``csrc/bn2_kernels.cuh``):
 
 =====  ======================  ===========================================
 K9     bn2_msm_accumulate      4-bit signed-window accumulation (B1, BN2)
-K10    bn2_msm_tail            window reduction + Horner + normalize (B2)
+K10    bn2_msm_tail            window reduction + split Horner + normalize (B2)
 K11    bn2_bexp                fixed-base comb + batch normalize (B4, BN2)
 K12    bn2_fold                g_l^c * g_r + normalize (B3, BN2)
 =====  ======================  ===========================================
@@ -24,8 +24,9 @@ raises.
 Points travel as ``[n, 24]`` int64 input rows (``ops/curve_bn2.py``):
 jacobian, standard form, as ``native._bn2_pts_to_u64`` gives them.  K9, K11
 and K12 turn them into working rows (projective, Montgomery form) in a
-first launch (K11 the rows of its comb table, which the C++ tier builds
-and :func:`bexp_table` caches per base), and every result leaves the
+first launch (K9 the affine entries of each point's multiples 1..8, K11
+the rows of its comb table, which the C++ tier builds and
+:func:`bexp_table` caches per base), and every result leaves the
 kernels normalized in standard form, the identity as exactly
 ``BNTwistPoint.identity``'s (1, 1, 0), which is an input row again.
 Scalars are recoded against the BN group order (``bn256.ORDER``), with the
@@ -45,6 +46,15 @@ from . import msm_cuda as mc
 TABLE = mc.TABLE  # fold table 0..15
 TABLE_S = mc.TABLE_S  # signed-digit table 0..8
 ROW = cb2.ROW
+ENTRY = 16  # K9's affine table entry (x R, y R)
+# K9's points a thread (16, 32 and 64 measured on the H100, PERF.md)
+ACCUM_POINTS_PER_THREAD = 64
+# K9's normalization launch: one wave of at most this many threads an SM
+# (fewer than its registers allow, 384: 128, 256 and 384 measured on the
+# H100, PERF.md)
+TABLE_SM_THREADS = 256
+# K10 (csrc/bn2_msm_tail.cu): the threads of a reduce block
+TAIL_REDUCE_THREADS = 128
 
 
 # ---------------------------------------------------------------------------
@@ -57,7 +67,16 @@ def msm_accumulate(points: torch.Tensor, digits: torch.Tensor,
     """K9: window accumulators [B, nw, S, 24] (working rows, not
     normalized) of B MSMs; slice s holds points s, s + S, s + 2S, ...
     points [B, n, 24] input rows, digits [B, nw/2, n] packed signed
-    windows.  CPU: :func:`msm_accumulate_plain`."""
+    windows.
+
+    Allocates the accumulators, a scratch table [B, n, 8, 16] (each
+    point's multiples 1..8 as affine entries, 1 KB a point: 134 MB at
+    n = 2^17) and the first launch's scratch of the same size (each
+    entry's Z and the running product of its thread's Z's); the first two
+    of K9's three launches fill the table (the second, the normalization,
+    with :func:`table_threads` threads) and the third reads it, one entry
+    per (window, point).
+    CPU: :func:`msm_accumulate_plain`."""
     mc._check_rows(points, "points", 3, ROW)
     B, n, _ = points.shape
     mc._check_digits(digits, "digits", (B, digits.shape[1], n))
@@ -68,41 +87,71 @@ def msm_accumulate(points: torch.Tensor, digits: torch.Tensor,
         return msm_accumulate_plain(points, digits, S)
     from . import _cuda_build as cb
 
-    tbl = torch.empty((B, n, TABLE_S - 1, ROW), dtype=torch.int64,
+    tbl = torch.empty((B, n, TABLE_S - 1, ENTRY), dtype=torch.int64,
                       device=points.device)
+    pre = torch.empty_like(tbl)
     acc = torch.empty((B, nw, S, ROW), dtype=torch.int64,
                       device=points.device)
     cb.check(cb.lib().vmpc_cu_bn2_msm_accum(
-        points.data_ptr(), tbl.data_ptr(), digits.data_ptr(),
-        acc.data_ptr(), B, n, nw, S, mc._stream(points)),
-        "bn2_msm_accumulate")
+        points.data_ptr(), tbl.data_ptr(), pre.data_ptr(), digits.data_ptr(),
+        acc.data_ptr(), B, n, nw, S, table_threads(B * n, points.device),
+        mc._stream(points)), "bn2_msm_accumulate")
     mc.LAUNCHES["bn2_msm_accumulate"] += 1
     return acc
 
 
+def table_threads(rows: int, dev: torch.device) -> int:
+    """The thread count G of K9's normalization launch for ``rows`` points:
+    one wave (``msm_cuda.one_wave``) of at most TABLE_SM_THREADS an SM;
+    thread g normalizes the entries of the points g, g + G, g + 2G, ...
+    with one inversion."""
+    from . import _cuda_build as cb
+
+    return mc.one_wave(rows, min(cb.lib().vmpc_cu_bn2_table_resident(),
+                                 TABLE_SM_THREADS), dev)
+
+
+def tail_split(S: int) -> int:
+    """K10's chunk count R a window: 4 (256 reduce blocks at nw = 64, one
+    wave; 1, 2, 4 and 8 measured on the H100 at S = 2048 and 4096,
+    PERF.md), fewer where a chunk would hold fewer accumulators than a
+    reduce block has threads."""
+    return max(1, min(4, S // TAIL_REDUCE_THREADS))
+
+
 def msm_tail(acc: torch.Tensor) -> torch.Tensor:
     """K10: accumulators [B, nw, S, 24] -> [B, 24] normalized rows of
-    sum_w 16^(nw-1-w) sum_s acc[w, s].  CPU: :func:`msm_tail_plain`."""
+    sum_w 16^(nw-1-w) sum_s acc[w, s]: a reduce launch into R chunks a
+    window (:func:`tail_split`), then one block a batch combines them.
+    CPU: :func:`msm_tail_plain`."""
     mc._check_rows(acc, "acc", 4, ROW)
     B, nw, S, _ = acc.shape
+    if not 0 < nw <= mc.NWINDOWS or not S:
+        raise ValueError(f"window count {nw} / slice count {S}")
     if mc._same_device(acc).type == "cpu":
         return msm_tail_plain(acc)
     from . import _cuda_build as cb
 
-    wsum = torch.empty((B, nw, ROW), dtype=torch.int64, device=acc.device)
+    R = tail_split(S)
+    part = torch.empty((B, nw, R, ROW), dtype=torch.int64, device=acc.device)
     out = torch.empty((B, ROW), dtype=torch.int64, device=acc.device)
     cb.check(cb.lib().vmpc_cu_bn2_msm_tail(
-        acc.data_ptr(), wsum.data_ptr(), out.data_ptr(), B, nw, S,
+        acc.data_ptr(), part.data_ptr(), out.data_ptr(), B, nw, S, R,
         mc._stream(acc)), "bn2_msm_tail")
     mc.LAUNCHES["bn2_msm_tail"] += 1
     return out
+
+
+def msm_slices(n: int) -> int:
+    """K9's slice count for n points (ACCUM_POINTS_PER_THREAD a thread)."""
+    return mc.slices_for(n, ACCUM_POINTS_PER_THREAD)
 
 
 def msm_rows(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
     """sum_i d_i * P_i for B independent MSMs -> [B, 24] normalized rows
     (K9 then K10)."""
     return msm_tail(msm_accumulate(points, digits,
-                                   mc.slices_for(points.shape[1])))
+                                   msm_slices(points.shape[1])))
 
 
 def bexp_rows(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
@@ -228,7 +277,7 @@ def msm_tail_plain(acc: torch.Tensor) -> torch.Tensor:
 def msm_plain(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
     """Plain version of K9 + K10."""
     return msm_tail_plain(
-        msm_accumulate_plain(points, digits, mc.slices_for(points.shape[1])))
+        msm_accumulate_plain(points, digits, msm_slices(points.shape[1])))
 
 
 def bexp_plain(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:

@@ -233,7 +233,7 @@ def msm_accumulate_plain(points: torch.Tensor, digits: torch.Tensor,
 
 def tail_spans(nw: int) -> list:
     """The windows [a, b) of K6's window groups: ceil(nw / TAIL_GROUPS)
-    each, the last ones shorter or empty (``bn_tail_span``)."""
+    each, the last ones shorter or empty (``tail_span``)."""
     k = -(-nw // TAIL_GROUPS)
     return [(min(j * k, nw), min(j * k + k, nw)) for j in range(TAIL_GROUPS)]
 

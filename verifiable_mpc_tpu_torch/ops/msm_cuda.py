@@ -50,11 +50,10 @@ TABLE_S = (1 << (WINDOW - 1)) + 1  # 0..8: signed-digit table
 FOLD_DIGITS = 256
 FOLD_NAF_WIDTH = 5
 FOLD_SM_THREADS = 256
-# points one (window, slice) thread of a window accumulation walks: K1 and
-# K5 (32: 3-5 % less time than 16 for K1 + K2 and K5 + K6 at 2^17 points
-# on an H100, PERF.md), K9 (16)
+# points one (window, slice) thread of K1's and K5's window accumulation
+# walks (32: 3-5 % less time than 16 for K1 + K2 and K5 + K6 at 2^17
+# points on an H100, PERF.md; K9 takes its own, msm_bn2_cuda)
 ACCUM_POINTS_PER_THREAD = 32
-POINTS_PER_THREAD = 16
 
 # kernel launches, counted by the wrappers where they launch (never by the
 # plain versions); the bn_* ones by ops/msm_bn_cuda.py, the bn2_* ones by
@@ -299,10 +298,10 @@ def _same_device(*ts):
     return dev
 
 
-def slices_for(n: int, per_thread: int = POINTS_PER_THREAD) -> int:
+def slices_for(n: int, per_thread: int) -> int:
     """A window accumulation's slice count: each (window, slice) thread
     walks about ``per_thread`` points (K1 and K5 take
-    ACCUM_POINTS_PER_THREAD, K9 the default)."""
+    ACCUM_POINTS_PER_THREAD, K9 msm_bn2_cuda's)."""
     return max(1, -(-n // per_thread))
 
 
