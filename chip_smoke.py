@@ -10,14 +10,15 @@ Phases (each one fatal; any failure exits non-zero and prints no result):
 1. the card's name and power limit (nvidia-smi);
 2. build the kernels (nvcc, ptxas's registers per thread of every kernel,
    and one line with the registers, stack, spills and shared memory of the
-   two launches each of K1, K5, K6, K8, K9, K10 and K11 and of K3's) and
-   the C++
+   launches of K1, K2, K3, K4, K5, K6, K8, K9, K10 and K11) and the C++
    host tier (g++), with their seconds;
 3. hold every kernel against its plain PyTorch version on the same inputs
    on the card: K1 + K2 (MSM), K3 (fold), K4 (comb) over Ed25519 and
    K5 + K6 (MSM), K7 (fold), K8 (comb) over BN256 G1 at n in {1, 300,
    4096} with edge scalars (and identity inputs for BN), also against the
-   C++ tier, and K9 + K10 (MSM), K11 (the batch-exp's comb) and K12
+   C++ tier (K4 also with an identity base, exponent 0 in thread 0's
+   normalization group and the exponents 0, l - 1 and one with a run of
+   zero windows), and K9 + K10 (MSM), K11 (the batch-exp's comb) and K12
    (fold) over the BN256 twist the same way (native.bn2_msm,
    native.bn2_batch_exp, the host law); K8 and K11 also with an identity
    base, exponent 0 and a whole normalization group of exponent 0, and at
@@ -27,17 +28,23 @@ Phases (each one fatal; any failure exits non-zero and prints no result):
    128 and -128, identities and points with Z != 1; K3 also at the
    challenges 0, 1, 8, 9, l - 1 and one with runs of zero windows (every n
    of these below its thread count G, 2^17 a ragged 2.6 G, and there too
-   against the C++ tier), K6 also on accumulators made here at B in {1, 3},
-   nw in {2, 8, 64}, S not a multiple of its chunk count R and a window
-   whose accumulators are all the identity (against the C++ tier's MSM of
-   them by 16^(nw-1-w)), K10 likewise on twist accumulators, and K9 with
+   against the C++ tier), K2 and K6 also on accumulators made here at B in
+   {1, 2} or {1, 3}, nw in {1, 2, 8, 64}, S not a multiple of its chunk
+   count R and a window whose accumulators are all the identity (against
+   the C++ tier's MSM of them by 16^(nw-1-w); K2 also where every window
+   sums to the identity), K10 likewise on twist accumulators, and K9 with
    identity inputs, a slice of zero digits and a point of zero digits
    (accumulators normalized against the plain version, K9 + K10 against
    the C++ tier); then each kernel alone at the shapes its path
    gives it, timed with CUDA events beside its plain version and its
-   bound; the tolerance is exact equality of canonical values;
+   bound (K4 at 2^18 - 1 exponents, a ragged count of its thread count G,
+   with thread 0's group all exponent 0, also against the C++ tier, and
+   its comb table's uncached build); the tolerance is exact equality of
+   canonical values;
 4. the Ed25519 MSM at 2^16 against the port's C++ tier
-   (native.ed_msm_arr); the BN MSM and comb at 2^16 against native.bn_msm /
+   (native.ed_msm_arr), and the Ed25519 MSM and comb against native.ed_msm
+   / ed_batch_exp at the Ed25519 tier sizes (the sweep behind
+   MIN_MSM_BATCH); the BN MSM and comb at 2^16 against native.bn_msm /
    bn_batch_exp, and both at the BN tier's threshold sizes; the twist MSM
    and batch-exp against native.bn2_msm / bn2_batch_exp at the twist tier
    sizes and at 2^17 (the sweep behind BN2_MIN_BATCH; at 2^17 also the
@@ -125,6 +132,7 @@ SNARK_LOG2_MULS = 16  # BASELINE.json's Pinocchio size
 SNARK_SHAPE = 1 << (SNARK_LOG2_MULS + 1)
 SNARK_PARITY_LOG2_MULS = 10
 KOE_LOG2_MULS = 10
+ED_TIER_SIZES = (128, 256, 512, 1024, 2048, 4096, 8192)
 BN_TIER_SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384)
 BN2_TIER_SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384, SNARK_SHAPE)
 CUTOVER_HALVES = tuple(1 << k for k in range(7, 15))
@@ -137,6 +145,7 @@ PINOCCHIO_TAILS = 7  # the G1 MSMs of a Pinocchio prove on the card
 # field multiplies (squarings included) of the group operations in
 # verifiable_mpc_tpu_torch/csrc/fe25519.cuh, for the bounds
 ADD, ADD_PRE, DBL, TO_PRE = 9, 8, 8, 1
+ADD_AFF = 7  # the mixed add of an affine entry (K4)
 INV = 265  # one Fermat inversion: 254 squarings and 11 multiplies
 DBL_NO_T = 7  # a doubling whose T nothing reads (K3)
 NORM_EACH = 6  # per point of a batch: Montgomery batch inversion's 3,
@@ -389,10 +398,12 @@ def ptxas_usage(text: str) -> dict:
     return {k: tuple(v) for k, v in out.items() if len(v) == 5}
 
 
-# the launches of K1, K3, K5, K6, K8, K9, K10 and K11 (each kernel's
-# launches in order)
+# the launches of K1, K2, K3, K4, K5, K6, K8, K9, K10 and K11 (each
+# kernel's launches in order)
 USAGE_KERNELS = (("K1", ("msm_table_kernel", "msm_accum_kernel")),
+                 ("K2", ("msm_reduce_kernel", "msm_combine_kernel")),
                  ("K3", ("fold_norm_kernel",)),
+                 ("K4", ("comb_norm_kernel",)),
                  ("K5", ("bn_table_kernel", "bn_msm_accum_kernel")),
                  ("K6", ("bn_msm_reduce_kernel", "bn_msm_combine_kernel")),
                  ("K8", ("bn_encode_affine_kernel", "bn_comb_norm_kernel")),
@@ -403,8 +414,8 @@ USAGE_KERNELS = (("K1", ("msm_table_kernel", "msm_accum_kernel")),
 
 
 def log_accum_usage(usage: dict):
-    """The ptxas line of the launches of K1, K3, K5, K6, K8, K9, K10 and
-    K11."""
+    """The ptxas line of the launches of K1, K2, K3, K4, K5, K6, K8, K9,
+    K10 and K11."""
     parts = []
     for label, keys in USAGE_KERNELS:
         for key in keys:
@@ -483,8 +494,8 @@ def fold_challenges(ell: int) -> list:
 
 
 def comb_exponents(n: int, G: int, rng, order: int) -> list:
-    """n exponents for a comb kernel (K8, K11) that runs G threads: the edge
-    scalars (0 among them), then random ones; exponent 0 also at index 1
+    """n exponents for a comb kernel (K4, K8, K11) that runs G threads: the
+    edge scalars (0 among them), then random ones; exponent 0 also at index 1
     (in a group with others) and at every index of thread 0's group (0, G,
     2G, ...: a whole normalization group of identities)."""
     exps = (edge_scalars(order) + [rng.randrange(order)
@@ -511,9 +522,16 @@ def random_points(native, n: int, rng) -> np.ndarray:
                                                   exps))
 
 
+# K4's edge exponents beside those of comb_exponents (0 and l - 1 among
+# them): one whose windows 1-61 are all 0 (a run of zeros), and 7 * 2^200
+COMB_EDGES = [(1 << 250) + 3, 7 << 200]
+
+
 def check_small(torch, native, mc, ced, rng):
     """K1 + K2, K3, K4 against their plain versions (and the C++ tier) at
-    the CHECK_SIZES, with the edge scalars in every batch."""
+    the CHECK_SIZES, with the edge scalars in every batch (K4: the
+    exponents of ``comb_exponents`` at its thread count, COMB_EDGES last,
+    and an identity base too)."""
     from verifiable_mpc_tpu_torch.groups.edwards import ELL, EdwardsPoint
 
     dev = torch.device(DEV)
@@ -548,17 +566,73 @@ def check_small(torch, native, mc, ced, rng):
             assert np.array_equal(ced.to_rows(got), host), \
                 f"K3 != C++ at n={n}, c={c}"
 
-        base = EdwardsPoint.generator ** rng.randrange(1, ELL)
-        table = mc.comb_table(base, nw, dev)
-        got = mc.comb_rows(table, dig)
-        plain = mc.comb_plain(table, dig)
-        host = native._pts_to_u64(EdwardsPoint.batch_normalize(
-            native.ed_batch_exp(base, sc)))
-        assert torch.equal(got, plain), f"K4 != plain at n={n}"
-        assert np.array_equal(ced.to_rows(got), host), f"K4 != C++ n={n}"
+        exps = comb_exponents(n, mc.comb_threads(n, dev), rng, ELL)
+        if n > 10:
+            exps[-len(COMB_EDGES):] = COMB_EDGES
+        pk4, nw4 = mc.packed_digits(native._ints_to_u64x4(exps, ELL))
+        dig4 = torch.from_numpy(pk4).to(dev)
+        for base in (EdwardsPoint.generator ** rng.randrange(1, ELL),
+                     EdwardsPoint.identity):
+            table = mc.comb_table(base, nw4, dev)
+            got = mc.comb_rows(table, dig4)
+            plain = mc.comb_plain(table, dig4)
+            host = ed_host_rows(native, native.ed_batch_exp(base, exps))
+            assert torch.equal(got, plain), f"K4 != plain at n={n}"
+            assert np.array_equal(ced.to_rows(got), host), f"K4 != C++ n={n}"
         torch.cuda.synchronize()
-        log(f"   n={n}: K1+K2, K3 (at the edge challenges too), K4 equal "
-            "their plain versions and the C++ tier")
+        log(f"   n={n}: K1+K2, K3 (at the edge challenges too), K4 (also "
+            "with an identity base) equal their plain versions and the C++ "
+            "tier")
+
+
+# K2's cases on accumulators made here: (B, nw, S, the window whose
+# accumulators are all the identity or None); the chunk counts R at these
+# shapes are 2, 2, 2, 3, 1, 1 and 1, so S = 4095, 2049 and 4100 are no
+# multiple
+ED_TAIL_CASES = ((2, 64, 4096, 5), (1, 64, 4095, None), (2, 8, 2049, 0),
+                 (1, 8, 4100, 7), (1, 8, 1501, None), (2, 2, 5, None),
+                 (1, 1, 1, None))
+
+
+def check_tail_ed(torch, native, mc, ced, rng):
+    """K2 alone on accumulators made from 4,096 points (one in 64 the
+    identity, every third with Z != 1, gathered at random) at
+    ED_TAIL_CASES, and on accumulators where every window sums to the
+    identity (P and -P): against msm_tail_plain and the C++ tier's MSM of
+    the same points by 16^(nw-1-w)."""
+    from verifiable_mpc_tpu_torch.groups.edwards import ELL, EdwardsPoint
+
+    dev = torch.device(DEV)
+    pts = ed_points(native, 4096, rng, identity_at=tuple(range(3, 4096, 64)))
+    rows = np.ascontiguousarray(native._pts_to_u64(pts))
+    work = ced.from_reference_rows(rows, dev)
+    for B, nw, S, ident in ED_TAIL_CASES:
+        idx = np.array([rng.randrange(4096) for _ in range(B * nw * S)])
+        if ident is not None:
+            idx.reshape(B, nw, S)[:, ident] = 3  # an identity
+        acc = work[torch.from_numpy(idx).to(dev)].reshape(B, nw, S, 16)
+        got = mc.msm_tail(acc)
+        assert torch.equal(got, mc.msm_tail_plain(acc)), \
+            f"K2 != plain at B={B} nw={nw} S={S}"
+        sc = native._ints_to_u64x4([16 ** (nw - 1 - w) % ELL
+                                    for w in range(nw)], ELL)
+        sc = np.ascontiguousarray(np.repeat(sc, S, axis=0))
+        host = np.stack([native.ed_msm_arr(np.ascontiguousarray(
+            rows[idx[b * nw * S:(b + 1) * nw * S]]), sc) for b in range(B)])
+        native.ed_batch_normalize_arr(host)
+        assert np.array_equal(ced.to_rows(got), host), \
+            f"K2 != C++ at B={B} nw={nw} S={S}"
+        R = mc.tail_split(S)
+        log(f"   K2 at B={B} nw={nw} S={S} (R={R}, S mod R = {S % R}"
+            + (f", window {ident} all identities" if ident is not None
+               else "") + "): equals its plain version and the C++ tier")
+    pairs = [q for p in pts[:6] for q in (p, -p)]  # 3 windows of S = 4
+    acc = ced.encode_points(pairs, dev).reshape(1, 3, 4, 16)
+    got = mc.msm_tail(acc)
+    assert torch.equal(got, mc.msm_tail_plain(acc)), "K2 != plain at 0"
+    assert ced.decode_rows(got)[0] == EdwardsPoint.identity, "K2: not 0"
+    assert ced.to_rows(got)[0].tolist() == list(ced.IDENTITY_ROW)
+    log("   K2 where every window sums to the identity: the identity row")
 
 
 def msm_accumulate_muls(d) -> int:
@@ -620,7 +694,8 @@ def check_main_shapes(torch, native, mc, ced, rng, g_half: int, n_comb: int):
         err=k2_err,
         ms=cuda_ms(torch, lambda: mc.msm_tail(acc)),
         plain_ms=cuda_ms(torch, lambda: mc.msm_tail_plain(acc), reps=1),
-        shape=f"B=2 nw={nw} S={S}", bytes=k2_bytes, muls=k2_muls,
+        shape=f"B=2 nw={nw} S={S} R={mc.tail_split(S)}", bytes=k2_bytes,
+        muls=k2_muls,
     )
 
     # K3: the round-0 fold of the same generator vector, also against the
@@ -674,23 +749,47 @@ def check_main_shapes(torch, native, mc, ced, rng, g_half: int, n_comb: int):
         shape=f"n={g_half} digits={len(cdig)}", bytes=k3_bytes, muls=k3_muls,
     )
 
-    # K4: create_generators' comb over n_comb full-size exponents
-    exps = [rng.randrange(1, ELL) for _ in range(n_comb)]
+    # K4: create_generators' comb over n_comb full-size exponents (thread
+    # 0's normalization group all exponent 0; n_comb is no multiple of G),
+    # its table built uncached first
+    G4 = mc.comb_threads(n_comb, dev)
+    exps = comb_exponents(n_comb, G4, rng, ELL)
+    log_groups("K4", n_comb, G4)
     pk4, nw4 = mc.packed_digits(native._ints_to_u64x4(exps, ELL))
     dig4 = torch.from_numpy(pk4).to(dev)
+    mc._COMB_TABLES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     table = mc.comb_table(EdwardsPoint.generator, nw4, dev)
+    torch.cuda.synchronize()
+    log(f"   K4's comb table ({table.shape[0]} affine rows, host law, one "
+        f"batch normalization, upload) built uncached in "
+        f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
     got = mc.comb_rows(table, dig4)
-    plain = mc.comb_plain(table, dig4)
+    plain, k4_plain = cuda_once(torch, lambda: mc.comb_plain(table, dig4))
     k4_err = max_abs_err(torch, got, plain)
     assert k4_err == 0.0, "K4 differs from the plain version"
-    nz4 = int((mc.unpack_digits(dig4) != 0).sum())
-    k4_muls = nz4 * ADD_PRE + n_comb * NORM_EACH + INV
+    host = ed_host_rows(native, native.ed_batch_exp(EdwardsPoint.generator,
+                                                    exps))
+    assert np.array_equal(ced.to_rows(got), host), "K4 != C++ at the shape"
+    # the sum of an exponent's nonzero entries: a mixed add of 7 products
+    # for each after the first (the last without T, the first entry's T
+    # one product), then its share of the batch normalization
+    nz4 = (mc.unpack_digits(dig4) != 0).sum(dim=0)
+    k4_muls = (ADD_AFF * int((nz4 - 1).clamp(min=0).sum())
+               + n_comb * NORM_EACH + INV)
+    old_muls = int(nz4.sum()) * ADD_PRE + n_comb * NORM_EACH + INV
     k4_bytes = table.numel() * 8 + dig4.numel() + n_comb * 128
+    log(f"   K4's bound recounted to mixed adds of affine entries: "
+        f"{k4_muls / n_comb:.1f} field products an exponent, "
+        f"{bound(torch, k4_bytes, k4_muls)[0]:.4f} ms (an add of 8 products"
+        f" a nonzero window, as counted before: {old_muls / n_comb:.1f}, "
+        f"{bound(torch, k4_bytes, old_muls)[0]:.4f} ms)")
     stats["comb"] = dict(
         err=k4_err,
         ms=cuda_ms(torch, lambda: mc.comb_rows(table, dig4)),
-        plain_ms=cuda_ms(torch, lambda: mc.comb_plain(table, dig4), reps=1),
-        shape=f"n={n_comb} nw={nw4}", bytes=k4_bytes, muls=k4_muls,
+        plain_ms=k4_plain,
+        shape=f"n={n_comb} nw={nw4} G={G4}", bytes=k4_bytes, muls=k4_muls,
     )
     for name, st in stats.items():
         st["bound_ms"], st["bound_by"] = bound(torch, st["bytes"], st["muls"])
@@ -732,6 +831,40 @@ def msm_bench(torch, native, mc, ced, rng):
         log(f"   msm 2^{MSM_BENCH_LOG2} {name}: best {min(ts) * 1e3:.3f} ms, "
             f"mean {statistics.mean(ts) * 1e3:.3f} ± "
             f"{statistics.stdev(ts) * 1e3:.3f} ms over {len(ts)} reps")
+    ed_tier(native, mc, rng)
+
+
+def ed_tier(native, mc, rng):
+    """The Ed25519 MSM (K1 + K2) and comb (K4) as the dispatch calls them
+    (host points and scalars in, a host point out) on the card and on the
+    C++ tier at the ED_TIER_SIZES, best of 3 with distinct scalars every
+    rep (the sweep behind MIN_MSM_BATCH)."""
+    from verifiable_mpc_tpu_torch.groups.edwards import ELL
+
+    pts = ed_points(native, ED_TIER_SIZES[-1], rng, rescale=False)
+    base = pts[1]
+    for size in ED_TIER_SIZES:
+        ts = {"msm": [], "c++ msm": [], "comb": [], "c++ comb": []}
+        for rep in range(4):  # rep 0 warms up
+            sc = [rng.randrange(ELL) for _ in range(size)]
+            t0 = time.perf_counter()
+            a = mc.msm(pts[:size], sc)
+            t1 = time.perf_counter()
+            b = native.ed_msm(pts[:size], sc)
+            t2 = time.perf_counter()
+            ca = mc.batch_exp_comb(base, sc)
+            t3 = time.perf_counter()
+            cb_ = native.ed_batch_exp(base, sc)
+            t4 = time.perf_counter()
+            assert a == b, f"GPU Ed25519 MSM != C++ at n={size}"
+            assert ca == cb_, f"GPU Ed25519 comb != C++ at n={size}"
+            if rep:
+                for k, t in zip(ts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                    ts[k].append(t)
+        log(f"   ed tier n={size}: msm gpu {min(ts['msm']) * 1e3:.3f} ms, "
+            f"c++ {min(ts['c++ msm']) * 1e3:.3f} ms; comb gpu "
+            f"{min(ts['comb']) * 1e3:.3f} ms, c++ "
+            f"{min(ts['c++ comb']) * 1e3:.3f} ms")
 
 
 def cutover(torch, native, mc, ced, rng):
@@ -1292,7 +1425,7 @@ TAIL_CASES = ((1, 64, 4096, 5), (3, 64, 2050, 0), (1, 64, 4095, None),
               (1, 8, 1501, 7), (3, 2, 5, None))
 
 
-def check_tail_bn(torch, native, mb, cbn, rng):
+def check_tail_bn(torch, native, mc, mb, cbn, rng):
     """K6 alone on accumulators made from 4,096 points (one in 64 the
     identity, gathered at random) at TAIL_CASES: against msm_tail_plain and
     the C++ tier's MSM of the same points by 16^(nw-1-w)."""
@@ -1316,7 +1449,7 @@ def check_tail_bn(torch, native, mb, cbn, rng):
                           sc) for b in range(B)])
         assert np.array_equal(cbn.to_rows(got), host), \
             f"K6 != C++ at B={B} nw={nw} S={S}"
-        R = mb.tail_split(S)
+        R = mc.tail_split(S, mb.TAIL_ADDS)
         log(f"   K6 at B={B} nw={nw} S={S} (R={R}, S mod R = {S % R}"
             + (f", window {ident} all identities" if ident is not None
                else "") + "): equals its plain version and the C++ tier")
@@ -2245,8 +2378,9 @@ def main() -> int:
     vm.enable_gpu(DEV)  # the kernels' wrappers read the device it sets
     with Phase("kernels against their plain versions, small n"):
         check_small(torch, native, mc, ced, rng)
+        check_tail_ed(torch, native, mc, ced, rng)
         check_small_bn(torch, native, mc, mb, cbn, rng)
-        check_tail_bn(torch, native, mb, cbn, rng)
+        check_tail_bn(torch, native, mc, mb, cbn, rng)
         check_small_bn2(torch, native, mc, mb2, cb2, rng)
         check_edges_bn2(torch, native, mc, mb2, cb2, rng)
         check_small_new(torch, native, mc, bk, ced, add, lm, rng)
@@ -2265,7 +2399,8 @@ def main() -> int:
     with Phase("twist kernels at the Pinocchio path's shapes"):
         stats.update(check_main_shapes_bn2(torch, native, mc, mb2, cb2, rng,
                                            SNARK_SHAPE))
-    with Phase(f"msm 2^{MSM_BENCH_LOG2} against the C++ tier"):
+    with Phase(f"msm 2^{MSM_BENCH_LOG2} and the Ed25519 tier sizes against "
+               "the C++ tier"):
         msm_bench(torch, native, mc, ced, rng)
     with Phase("BN msm and comb against the C++ tier"):
         bn_bench(torch, native, mc, mb, rng)

@@ -1,24 +1,29 @@
 #!/usr/bin/env python3
-"""Design variants of the kernels K3, K6, K8, K9, K10 and K11, timed on the
-card against the committed kernels on the same inputs.
+"""Design variants of the kernels K2, K3, K4, K6, K8, K9, K10 and K11, timed
+on the card against the committed kernels on the same inputs.
 
     python3 chip_variants.py [--log2 17] [--reps 3] [--only NAME ...]
                              [--parent DIR]
 
-A variant is a committed kernel source (``csrc/fold.cu``,
-``csrc/bn_msm_tail.cu``, ``csrc/bn2_bexp.cu``, ``csrc/bn_comb.cu``,
-``csrc/bn2_msm_accum.cu`` or ``csrc/bn2_msm_tail.cu``) with the few text
-edits listed in ``VARIANTS`` (a function's body copied from its header and
-edited counts as one), built alone with nvcc into a library of its own
-(under the kernels' build directory).  The committed kernel's wrapper then
-runs with the variant's entry points in place of the committed ones, on
-the same inputs: 2^log2 elements for K3 (the flagship's round 0 at the
-default), K6's accumulators at B = 1, nw = 64, S = 4096 (the Pinocchio
-path's MSM tail), 2^log2 exponents for K8 and K11 (the Pinocchio path's,
-the G1 or the twist generator's comb table), 2^log2 twist points for K9
-(the Pinocchio prove's twist MSM) and its accumulators for K10.  The
-variants in ``SPLITS`` run the committed K6 or K10 with another chunk
-count R a window; the ``WAVES`` variants run the committed K9 with its
+A variant is a committed kernel source (``csrc/msm_tail.cu``,
+``csrc/fold.cu``, ``csrc/comb.cu``, ``csrc/bn_msm_tail.cu``,
+``csrc/bn2_bexp.cu``, ``csrc/bn_comb.cu``, ``csrc/bn2_msm_accum.cu`` or
+``csrc/bn2_msm_tail.cu``) with the few text edits listed in ``VARIANTS``
+(a function's body copied from its header and edited counts as one, and
+so does a header's text put in place of its ``#include`` with edits),
+built alone with nvcc into a library of its own (under the kernels' build
+directory).  The committed kernel's wrapper then runs with the variant's
+entry points in place of the committed ones, on the same inputs: K2's
+accumulators at B = 2, nw = 64, S = 4096 (a flagship round 0's two MSMs
+at the default), 2^log2 elements for K3 (the flagship's round 0 at the
+default), 2^(log2+1) - 1 exponents for K4 (the flagship's generators at
+the default), K6's accumulators at B = 1, nw = 64, S = 4096 (the
+Pinocchio path's MSM tail), 2^log2 exponents for K8 and K11 (the
+Pinocchio path's, the G1 or the twist generator's comb table), 2^log2
+twist points for K9 (the Pinocchio prove's twist MSM) and its
+accumulators for K10.  The variants in ``SPLITS`` run the committed K2,
+K6 or K10 with another chunk count R a window; the ``WAVES`` variants
+run the committed K9 with its
 normalization at another count of threads an SM; the ``POINTS`` variants
 run K9 with another count of points a thread, and K10 on its
 accumulators (K9 alone, K10 alone and both are timed; the MSM's rows must
@@ -29,9 +34,10 @@ are timed in turns (committed, variant, variant, committed; CUDA events,
 best of ``--reps`` each).  The sources keep one design each; the
 alternatives that were measured against it live only here.  Prints the
 card line, ptxas's lines of the variants, one line per variant and, last,
-one JSON object with the times.  With ``--parent DIR`` it also times K3,
-K6, K9 and K10 of this checkout against those of the checkout at DIR (an
-earlier commit, unpacked there), each in a process of its own, in turns.
+one JSON object with the times.  With ``--parent DIR`` it also times K2,
+K3, K4, K6, K9 and K10 of this checkout against those of the checkout at
+DIR (an earlier commit, unpacked there), each in a process of its own, in
+turns.
 Imports neither jax nor the JAX package, and fails without a card.
 """
 
@@ -168,6 +174,27 @@ def per_exponent(encode: str) -> tuple:
     its own inversion: the kernel before the batched normalization."""
     return (f"  cudaStream_t s = (cudaStream_t)stream;\n  {encode}",
             f"  cudaStream_t s = (cudaStream_t)stream;\n  G = n;\n  {encode}")
+
+
+def inline_header(header: str, edits):
+    """An edit that puts the text of csrc/``header``, with the text edits
+    (old, new) applied wherever they occur (each must), in place of its
+    ``#include``: a variant of functions that the kernel reaches through
+    overloads (K2's ed_coop steps) or through its body (K4's)."""
+    def edit(text: str) -> str:
+        with open(os.path.join(HERE, "verifiable_mpc_tpu_torch", "csrc",
+                               header)) as f:
+            body = f.read().replace("#pragma once\n", "")
+        for old, new in edits:
+            if old not in body:
+                raise RuntimeError(f"{header}: no {old[:50]!r}")
+            body = body.replace(old, new)
+        include = f'#include "{header}"\n'
+        if text.count(include) != 1:
+            raise RuntimeError(f"the source includes {header} "
+                               f"{text.count(include)} times")
+        return text.replace(include, body)
+    return edit
 
 
 def body_copy(header: str, fn: str, name: str, edits) -> str:
@@ -623,10 +650,219 @@ K10_REDUCE_ONLY = ("""  rc = (int)cudaGetLastError();
   if (rc) return rc;
   bn2_msm_combine_kernel""", """  return (int)cudaGetLastError();
   bn2_msm_combine_kernel""")
+K2_REDUCE_ONLY = ("""  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  msm_combine_kernel""", """  return (int)cudaGetLastError();
+  msm_combine_kernel""")
+
+# K2's entry point returning before its launches (what the CUDA events
+# around a call see of the wrapper's host work), and its combination
+# without the final inversion (rows not normalized)
+K2_NO_LAUNCH = ("""  cudaStream_t s = (cudaStream_t)stream;
+  dim3 grid(nw * R, B);""", """  return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  dim3 grid(nw * R, B);""")
+K2_NO_INVERSION = inline_header("ed25519_kernels.cuh", [(
+    "  fe_inv_var(zinv, s.v[2]);", "  zinv = s.v[2];")])
+
+# K2's reduce without its shared-memory tree (thread 0's partial is
+# written: a timing probe of the walk), and with the tree's slots
+# word-major (sh[word][thread]: a warp's 32 slots on 32 banks, where the
+# committed point-major rows put them all on one)
+K2_REDUCE_NO_TREE = (
+    "  for (int stride = blockDim.x / 2; stride > 0; stride >>= 1) {",
+    "  for (int stride = 0; stride > 0; stride >>= 1) {")
+
+
+def k2_tree_word_major(text: str) -> str:
+    helpers = """
+__device__ __forceinline__ void tree_store(uint64_t (*sh)[REDUCE_THREADS],
+                                           int t, const ge_ext &p) {
+  uint64_t row[16];
+  ge_store(row, p);
+  for (int j = 0; j < 16; j++) sh[j][t] = row[j];
+}
+
+__device__ __forceinline__ void tree_load(ge_ext &p,
+                                          uint64_t (*sh)[REDUCE_THREADS],
+                                          int t) {
+  uint64_t row[16];
+  for (int j = 0; j < 16; j++) row[j] = sh[j][t];
+  ge_load(p, row);
+}
+"""
+    for old, new in (
+            ("#define TAIL_WINDOWS 64     // most windows of an MSM (one lane "
+             "group each)\n",
+             "#define TAIL_WINDOWS 64     // most windows of an MSM (one lane "
+             "group each)\n" + helpers),
+            ("  __shared__ uint64_t sh[REDUCE_THREADS][16];",
+             "  __shared__ uint64_t sh[16][REDUCE_THREADS];"),
+            ("  ge_store(sh[threadIdx.x], sum);",
+             "  tree_store(sh, threadIdx.x, sum);"),
+            ("      ge_load(p, sh[threadIdx.x]);\n"
+             "      ge_load(q, sh[threadIdx.x + stride]);",
+             "      tree_load(p, sh, threadIdx.x);\n"
+             "      tree_load(q, sh, threadIdx.x + stride);"),
+            ("      ge_store(sh[threadIdx.x], t);",
+             "      tree_store(sh, threadIdx.x, t);"),
+            ("        sh[0][threadIdx.x];", "        sh[threadIdx.x][0];")):
+        if text.count(old) != 1:
+            raise RuntimeError(f"msm_tail.cu: {old[:50]!r}")
+        text = text.replace(old, new)
+    return text
+
+
+# K2's final inversion by the Fermat chain (fe_inv, 265 dependent
+# products) in place of the binary extended Euclid algorithm
+K2_FERMAT = inline_header("ed25519_kernels.cuh", [(
+    "  fe_inv_var(zinv, s.v[2]);", "  fe_inv(zinv, s.v[2]);")])
+
+# K2's chain (its products and the Fermat inversion) with column-sum
+# products: the 64 limb products independent, their halves summed by
+# column (each column below 2^37), one carry pass with the reduction
+K2_COLS_FNS = """
+FE_FN void fe_reduce_cols(fe &r, const uint64_t *col) {
+  uint64_t c = 0;
+  for (int k = 0; k < 8; k++) {
+    c += col[k] + 38u * col[k + 8];
+    r.v[k] = (uint32_t)c;
+    c >>= 32;
+  }
+  fe_fold_carry(r, c);
+}
+
+FE_FN void fe_mul_cols(fe &r, const fe &a, const fe &b) {
+  uint64_t col[16];
+  for (int k = 0; k < 16; k++) col[k] = 0;
+  for (int i = 0; i < 8; i++)
+    for (int j = 0; j < 8; j++) {
+      uint64_t x = (uint64_t)a.v[i] * b.v[j];
+      col[i + j] += (uint32_t)x;
+      col[i + j + 1] += x >> 32;
+    }
+  fe_reduce_cols(r, col);
+}
+
+FE_FN void fe_sq_cols(fe &r, const fe &a) {
+  uint64_t col[16];
+  for (int k = 0; k < 16; k++) col[k] = 0;
+  for (int i = 0; i < 8; i++) {
+    uint64_t x = (uint64_t)a.v[i] * a.v[i];
+    col[2 * i] += (uint32_t)x;
+    col[2 * i + 1] += x >> 32;
+    for (int j = i + 1; j < 8; j++) {
+      x = (uint64_t)a.v[i] * a.v[j];
+      col[i + j] += (uint64_t)(uint32_t)x << 1;
+      col[i + j + 1] += (x >> 32) << 1;
+    }
+  }
+  fe_reduce_cols(r, col);
+}
+
+FE_FN void fe_inv_cols(fe &r, const fe &z) {
+  fe z2, z9, z11, a, b, t, z2_5_0, z2_10_0, z2_20_0, z2_50_0, z2_100_0;
+  auto sqn = [](fe &o, const fe &x, int n) {
+    o = x;
+    for (int i = 0; i < n; i++) fe_sq_cols(o, o);
+  };
+  fe_sq_cols(z2, z);
+  sqn(t, z2, 2);
+  fe_mul_cols(z9, t, z);
+  fe_mul_cols(z11, z9, z2);
+  fe_sq_cols(t, z11);
+  fe_mul_cols(z2_5_0, t, z9);
+  sqn(t, z2_5_0, 5);
+  fe_mul_cols(z2_10_0, t, z2_5_0);
+  sqn(t, z2_10_0, 10);
+  fe_mul_cols(z2_20_0, t, z2_10_0);
+  sqn(t, z2_20_0, 20);
+  fe_mul_cols(a, t, z2_20_0);
+  sqn(t, a, 10);
+  fe_mul_cols(z2_50_0, t, z2_10_0);
+  sqn(t, z2_50_0, 50);
+  fe_mul_cols(z2_100_0, t, z2_50_0);
+  sqn(t, z2_100_0, 100);
+  fe_mul_cols(b, t, z2_100_0);
+  sqn(t, b, 50);
+  fe_mul_cols(a, t, z2_50_0);
+  sqn(t, a, 5);
+  fe_mul_cols(r, t, z11);
+}
+"""
+K2_COLS = inline_header("ed25519_kernels.cuh", [
+    ('#include "fe25519.cuh"\n', '#include "fe25519.cuh"\n' + K2_COLS_FNS),
+    ("    fe_sq(r, a);\n    s.m[k] = r;",
+     "    fe_sq_cols(r, a);\n    s.m[k] = r;"),
+    ("    fe_mul(r, a, b);\n    s.m[k] = r;",
+     "    fe_mul_cols(r, a, b);\n    s.m[k] = r;"),
+    ("    fe_mul(r, a, b);\n    s.v[k] = r;",
+     "    fe_mul_cols(r, a, b);\n    s.v[k] = r;"),
+    ("      fe_mul(r, s.v[k + 3], two_d);",
+     "      fe_mul_cols(r, s.v[k + 3], two_d);"),
+    ("  fe_inv_var(zinv, s.v[2]);", "  fe_inv_cols(zinv, s.v[2]);")])
+
+# K4 with the projective form's add (ge_add_pre_signed: 2Z2 = 2 read as a
+# coordinate, D = Z1 2Z2 a product: 8 products) in place of the affine
+# mixed add (7)
+K4_PROJECTIVE_ADD = inline_header("ed25519_kernels.cuh", [(
+    "      ge_add_aff_signed(acc, acc, q, d < 0);\n",
+    """      ge_pre e;
+      e.ypx = q.ypx;
+      e.ymx = q.ymx;
+      e.t2d = q.t2d;
+      fe_small(e.z2, 2);
+      ge_ext t;
+      ge_add_pre_signed(t, acc, e, d < 0);
+      acc = t;
+""")])
+
+
+# K4 without T in the add of the last window (the normalization does not
+# read it), behind a branch on the window
+K4_LAST_NO_T = (
+    INCLUDES
+    + body_copy("fe25519.cuh", "ge_add_aff_signed", "ge_add_aff_last", [
+        ("                             bool neg) {",
+         "                             bool neg, bool with_t) {"),
+        ("  fe_mul(r.T, e, h);", "  if (with_t) fe_mul(r.T, e, h);")])
+    + body_copy("ed25519_kernels.cuh", "comb_group", "comb_group_last", [
+        ("ge_add_aff_signed(acc, acc, q, d < 0);",
+         "ge_add_aff_last(acc, acc, q, d < 0, w < nw - 1);")]))
 
 
 # name -> (kernel, source, [(committed text, variant text), ...])
 VARIANTS = {
+    # K2 with 2 or 8 lanes a group operation (both phases), 4 or 16 window
+    # groups, column-sum products, the Fermat inversion, and the timing
+    # probes: its reduce launch alone, no launch, no inversion
+    "k2_lanes2": ("msm_tail", "msm_tail.cu", [
+        ("#define TAIL_LANES 4 ", "#define TAIL_LANES 2 "),
+        ("#define TAIL_CHAIN_LANES 4 ", "#define TAIL_CHAIN_LANES 2 ")]),
+    "k2_lanes8": ("msm_tail", "msm_tail.cu", [
+        ("#define TAIL_LANES 4 ", "#define TAIL_LANES 8 "),
+        ("#define TAIL_CHAIN_LANES 4 ", "#define TAIL_CHAIN_LANES 8 ")]),
+    "k2_groups4": ("msm_tail", "msm_tail.cu", [
+        ("#define TAIL_GROUPS 8 ", "#define TAIL_GROUPS 4 ")]),
+    "k2_groups16": ("msm_tail", "msm_tail.cu", [
+        ("#define TAIL_GROUPS 8 ", "#define TAIL_GROUPS 16 ")]),
+    "k2_cols": ("msm_tail", "msm_tail.cu", [K2_COLS]),
+    "k2_fermat": ("msm_tail", "msm_tail.cu", [K2_FERMAT]),
+    "k2_reduce_only": ("msm_tail", "msm_tail.cu", [K2_REDUCE_ONLY]),
+    "k2_no_launch": ("msm_tail", "msm_tail.cu", [K2_NO_LAUNCH]),
+    "k2_no_inversion": ("msm_tail", "msm_tail.cu", [K2_NO_INVERSION]),
+    "k2_reduce_no_tree": ("msm_tail", "msm_tail.cu", [K2_REDUCE_ONLY,
+                                                      K2_REDUCE_NO_TREE]),
+    "k2_tree_word_major": ("msm_tail", "msm_tail.cu", [k2_tree_word_major]),
+    # K4 with the projective add, one inversion an exponent, the last
+    # window's add without T
+    "k4_projective_add": ("comb", "comb.cu", [K4_PROJECTIVE_ADD]),
+    "k4_per_exponent": ("comb", "comb.cu", [
+        ("  comb_norm_kernel<<<", "  G = n;\n  comb_norm_kernel<<<")]),
+    "k4_last_no_t": ("comb", "comb.cu", [
+        (INCLUDES, K4_LAST_NO_T),
+        ("if (g < G) comb_group(table,",
+         "if (g < G) comb_group_last(table,")]),
     # K11's table copied into shared memory (110.6 KB a block) instead of
     # read through L1
     "k11_shared": ("bn2_bexp", "bn2_bexp.cu", shared_table(
@@ -748,9 +984,11 @@ VARIANTS = {
         ("#define TAIL_GROUPS 8 ", "#define TAIL_GROUPS 4 ")]),
 }
 
-# the committed K6 or K10 with another chunk count R a window (the
-# wrappers' tail_split give 4 at S = 4096): name -> (kernel, R)
-SPLITS = {"k6_r2": ("bn_msm_tail", 2), "k6_r3": ("bn_msm_tail", 3),
+# the committed K2, K6 or K10 with another chunk count R a window (the
+# wrappers' tail_split give 2, 4 and 4 at S = 4096): name -> (kernel, R)
+SPLITS = {"k2_r1": ("msm_tail", 1), "k2_r3": ("msm_tail", 3),
+          "k2_r4": ("msm_tail", 4), "k2_r8": ("msm_tail", 8),
+          "k6_r2": ("bn_msm_tail", 2), "k6_r3": ("bn_msm_tail", 3),
           "k6_r5": ("bn_msm_tail", 5), "k6_r6": ("bn_msm_tail", 6),
           "k6_r8": ("bn_msm_tail", 8), "k6_r16": ("bn_msm_tail", 16),
           "k6_r32": ("bn_msm_tail", 32), "k10_r1": ("bn2_msm_tail", 1),
@@ -762,12 +1000,18 @@ SPLITS = {"k6_r2": ("bn_msm_tail", 2), "k6_r3": ("bn_msm_tail", 3),
 # (name -> {committed entry point: the variant's})
 ONE_LIB = {"k9_pair_projective3": {
     "vmpc_cu_bn2_msm_accum": "vmpc_cu_bn2_msm_accum_alt"}}
-NO_ROWS = {"k9_table_only", "k9_projective_table_only", "k10_reduce_only"}
-# the committed K9 with its normalization at one wave of another count of
-# threads an SM (the wrapper's TABLE_SM_THREADS is the committed one; 384
-# is what its registers allow): fewer threads, fewer inversions and longer
-# chains
-WAVES = {"k9_norm_wave128": 128, "k9_norm_wave384": 384}
+NO_ROWS = {"k9_table_only", "k9_projective_table_only", "k10_reduce_only",
+           "k2_reduce_only", "k2_no_launch", "k2_no_inversion",
+           "k2_reduce_no_tree"}
+# the committed K9 with its normalization, or K4, at one wave of another
+# count of threads an SM (the wrappers' TABLE_SM_THREADS and
+# COMB_SM_THREADS are the committed ones; K9's registers allow 384, K4's
+# 640, "all": what the registers allow): fewer threads, fewer inversions
+# and longer chains.  name -> (kernel, threads an SM)
+WAVES = {"k9_norm_wave128": ("bn2_msm_accumulate", 128),
+         "k9_norm_wave384": ("bn2_msm_accumulate", 384),
+         "k4_wave_all": ("comb", 1 << 20), "k4_wave256": ("comb", 256),
+         "k4_wave128": ("comb", 128)}
 # K9's points a thread (the wrapper's ACCUM_POINTS_PER_THREAD is the
 # committed count), K10 on the accumulators each gives
 POINTS = {"k9_points16": 16, "k9_points32": 32, "k9_points64": 64}
@@ -832,20 +1076,22 @@ class Swapped:
 
 
 def kernel_times(root: str, reps: int) -> dict:
-    """K3 at 2^17 elements, K6 at B = 1, nw = 64, S = 4096, K9 at 2^17 twist
-    points and K10 on their accumulators (each at the slice count of its
-    checkout's MSM) of the package under ``root``, on inputs made from
-    fixed seeds (the same for every checkout): best-of-``reps`` CUDA-event
-    times and a checksum of each kernel's rows (of the twist MSM's result
-    for K9 and K10).  A checkout whose K3 takes unsigned radix-16 digits
-    (an earlier commit) gets those."""
+    """K2 at B = 2, nw = 64, S = 4096, K3 at 2^17 elements, K4 at 2^18 - 1
+    exponents (the generator's comb table of its checkout), K6 at B = 1,
+    nw = 64, S = 4096, K9 at 2^17 twist points and K10 on their
+    accumulators (each at the slice count of its checkout's MSM) of the
+    package under ``root``, on inputs made from fixed seeds (the same for
+    every checkout): best-of-``reps`` CUDA-event times and a checksum of
+    each kernel's rows (of the twist MSM's result for K9 and K10).  A
+    checkout whose K3 takes unsigned radix-16 digits (an earlier commit)
+    gets those."""
     sys.path.insert(0, root)
     import torch
 
     import verifiable_mpc_tpu_torch as vm
     from verifiable_mpc_tpu_torch import native
     from verifiable_mpc_tpu_torch.groups.bn256 import ORDER
-    from verifiable_mpc_tpu_torch.groups.edwards import ELL
+    from verifiable_mpc_tpu_torch.groups.edwards import ELL, EdwardsPoint
     from verifiable_mpc_tpu_torch.ops import curve_bn as cbn
     from verifiable_mpc_tpu_torch.ops import curve_bn2 as cb2
     from verifiable_mpc_tpu_torch.ops import curve_ed as ced
@@ -867,7 +1113,12 @@ def kernel_times(root: str, reps: int) -> dict:
     idx = torch.randint(0, 4096, (64 * 4096,),
                         generator=torch.Generator().manual_seed(3))
     acc = work[idx.to("cuda")].reshape(1, 64, 4096, 12)
-    calls = {"fold": lambda: mc.fold_rows(g[:n], g[n:], cdig),
+    acc_ed = k2_accumulators(torch, native, ced, rng, "cuda")
+    dig4, nw4 = k4_digits(torch, native, mc, rng, 2 * n - 1, "cuda")
+    table4 = mc.comb_table(EdwardsPoint.generator, nw4, "cuda")
+    calls = {"msm_tail": lambda: mc.msm_tail(acc_ed),
+             "fold": lambda: mc.fold_rows(g[:n], g[n:], cdig),
+             "comb": lambda: mc.comb_rows(table4, dig4),
              "bn_msm_tail": lambda: mb.msm_tail(acc)}
     out = {k: (smoke.cuda_ms(torch, fn, reps), int(fn().sum().item()))
            for k, fn in calls.items()}
@@ -886,8 +1137,53 @@ def kernel_times(root: str, reps: int) -> dict:
     return out
 
 
+def k2_accumulators(torch, native, ced, rng, dev):
+    """K2's input at a flagship round 0's shape: [2, 64, 4096, 16]
+    accumulators gathered at random from 4,096 random points."""
+    pts = ced.from_reference_rows(smoke.random_points(native, 4096, rng), dev)
+    idx = torch.randint(0, 4096, (2 * 64 * 4096,),
+                        generator=torch.Generator().manual_seed(11))
+    return pts[idx.to(dev)].reshape(2, 64, 4096, 16)
+
+
+def k4_digits(torch, native, mc, rng, n: int, dev):
+    """K4's input at the flagship generators' shape: the packed digits of
+    n random exponents and their window count."""
+    from verifiable_mpc_tpu_torch.groups.edwards import ELL
+
+    pk, nw = mc.packed_digits(native._ints_to_u64x4(
+        [rng.randrange(1, ELL) for _ in range(n)], ELL))
+    return torch.from_numpy(pk).to(dev), nw
+
+
+# the sources whose ptxas lines --parent prints for both checkouts: K2,
+# K4, and K6 and K10, whose combination coop.cuh shares with K2
+PTXAS_SOURCES = ("msm_tail.cu", "comb.cu", "bn_msm_tail.cu",
+                 "bn2_msm_tail.cu")
+
+
+def ptxas_of(root: str) -> dict:
+    """{kernel: (registers, stack, spill stores, spill loads, shared
+    bytes)} of PTXAS_SOURCES in the checkout at ``root``, each compiled
+    alone with the package's flags (objects thrown away)."""
+    import subprocess
+    import tempfile
+
+    from verifiable_mpc_tpu_torch.ops import _cuda_build as cb
+
+    csrc = os.path.join(root, "verifiable_mpc_tpu_torch", "csrc")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.run(
+            [cb._nvcc(), *cb.NVCC_FLAGS, "-Xptxas=-v", "-c", "-o",
+             os.path.join(tmp, src + ".o"), os.path.join(csrc, src)],
+            capture_output=True, text=True, timeout=900, check=True)
+            for src in PTXAS_SOURCES]
+    return smoke.ptxas_usage("\n".join(p.stdout + p.stderr for p in procs))
+
+
 def against(parent: str, reps: int) -> dict:
-    """K3, K6, K9 and K10 of this checkout and of the one at ``parent``,
+    """K2, K3, K4, K6, K9 and K10 of this checkout and of the one at
+    ``parent``,
     each in a process of its own, in turns (parent, this, this, parent);
     their rows must agree."""
     import subprocess
@@ -903,6 +1199,11 @@ def against(parent: str, reps: int) -> dict:
     sums = {json.dumps({k: v[1] for k, v in t.items()})
             for ts in out.values() for t in ts}
     assert len(sums) == 1, f"the checkouts' rows differ: {sums}"
+    for which, root in (("parent", os.path.abspath(parent)), ("this", HERE)):
+        for k, v in sorted(ptxas_of(root).items()):
+            print(f"ptxas {which} {k}: {v[0]} registers, {v[1]} bytes stack,"
+                  f" {v[2]}/{v[3]} bytes spill stores/loads, {v[4]} bytes "
+                  "shared", flush=True)
     for k in out["this"][0]:
         print(f"{k} against {parent}: parent " + " / ".join(
             f"{t[k][0]:.3f}" for t in out["parent"]) + " ms, this "
@@ -962,7 +1263,7 @@ def main(argv) -> int:
                     default=(sorted(VARIANTS) + sorted(SPLITS) + sorted(POINTS)
                              + sorted(WAVES)))
     ap.add_argument("--parent", default=None,
-                    help="also time K3, K6, K9 and K10 against this "
+                    help="also time K2, K3, K4, K6, K9 and K10 against this "
                     "checkout's")
     ap.add_argument("--kernel-times", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -979,7 +1280,7 @@ def main(argv) -> int:
     from verifiable_mpc_tpu_torch import native
     from verifiable_mpc_tpu_torch.groups.bn256 import (ORDER, BNPoint,
                                                        BNTwistPoint)
-    from verifiable_mpc_tpu_torch.groups.edwards import ELL
+    from verifiable_mpc_tpu_torch.groups.edwards import ELL, EdwardsPoint
     from verifiable_mpc_tpu_torch.ops import _cuda_build as cb
     from verifiable_mpc_tpu_torch.ops import curve_bn as cbn
     from verifiable_mpc_tpu_torch.ops import curve_bn2 as cb2
@@ -999,7 +1300,7 @@ def main(argv) -> int:
         if v in VARIANTS:
             return VARIANTS[v][0]
         if v in WAVES:
-            return "bn2_msm_accumulate"
+            return WAVES[v][0]
         return SPLITS[v][0] if v in SPLITS else "bn2_points"
 
     kernels = {kernel_of(v) for v in args.only}
@@ -1012,6 +1313,13 @@ def main(argv) -> int:
             BNTwistPoint.generator, nw, dev): mb2.bexp_rows(t, dig))
         calls["bn_comb"] = (lambda t=mb.comb_table(BNPoint.generator, nw,
                                                    dev): mb.comb_rows(t, dig))
+    if "msm_tail" in kernels:
+        acc_ed = k2_accumulators(torch, native, ced, rng, dev)
+        calls["msm_tail"] = lambda: mc.msm_tail(acc_ed)
+    if "comb" in kernels:
+        dig4, nw4 = k4_digits(torch, native, mc, rng, 2 * n - 1, dev)
+        calls["comb"] = (lambda t=mc.comb_table(EdwardsPoint.generator, nw4,
+                                                dev): mc.comb_rows(t, dig4))
     if "fold" in kernels:
         g = ced.from_reference_rows(smoke.random_points(native, 2 * n, rng),
                                     dev)
@@ -1040,9 +1348,9 @@ def main(argv) -> int:
         same["bn2_msm_accumulate"] = lambda a, b: torch.equal(*(
             cb2.normalize_rows(cb2.split_rows(x)) for x in (a, b)))
     want = {k: fn() for k, fn in calls.items()}
-    committed = {mb: mb.tail_split, mb2: mb2.tail_split,
+    committed = {mc: mc.tail_split, mb2: mb2.tail_split,
                  "points": mb2.ACCUM_POINTS_PER_THREAD,
-                 "wave": mb2.TABLE_SM_THREADS}
+                 "wave": mb2.TABLE_SM_THREADS, "comb": mc.COMB_SM_THREADS}
     out = {}
     for name in args.only:
         kernel = kernel_of(name)
@@ -1054,10 +1362,13 @@ def main(argv) -> int:
         for which in ("committed", name, name, "committed"):
             cb._lib = swapped if which == name else base
             if name in SPLITS and which == name:
-                mod = mb if kernel == "bn_msm_tail" else mb2
+                mod = mb2 if kernel == "bn2_msm_tail" else mc
                 mod.tail_split = lambda *a, R=SPLITS[name][1], **k: R
-            mb2.TABLE_SM_THREADS = (WAVES[name] if which == name
-                                    and name in WAVES else committed["wave"])
+            wave = WAVES[name][1] if which == name and name in WAVES else None
+            mb2.TABLE_SM_THREADS = (wave if wave and kernel != "comb"
+                                    else committed["wave"])
+            mc.COMB_SM_THREADS = (wave if wave and kernel == "comb"
+                                  else committed["comb"])
             if name in POINTS:
                 mb2.ACCUM_POINTS_PER_THREAD = (
                     POINTS[name] if which == name else committed["points"])
@@ -1072,10 +1383,11 @@ def main(argv) -> int:
                 times[which].append(smoke.cuda_ms(torch, calls[kernel],
                                                   args.reps))
             clocks.append(str(ck))
-            mb.tail_split, mb2.tail_split = committed[mb], committed[mb2]
+            mc.tail_split, mb2.tail_split = committed[mc], committed[mb2]
         cb._lib = main_lib
         mb2.ACCUM_POINTS_PER_THREAD = committed["points"]
         mb2.TABLE_SM_THREADS = committed["wave"]
+        mc.COMB_SM_THREADS = committed["comb"]
         out.setdefault(name, []).append(times)
         if name in POINTS:
             print(f"{name} (K9 alone / K10 alone / both, n={n}): committed "

@@ -1,7 +1,9 @@
 """The CUDA kernels' per-thread bodies (csrc/ed25519_kernels.cuh over
 csrc/fe25519.cuh), built with g++ for the CPU, against the plain PyTorch
 versions on the same inputs: the field and curve code of the kernels gets
-checked without a card.  The bucket MSM's bodies (K13's add with
+checked without a card.  K2's combination (coop.cuh's lane groups over
+the ed_coop steps) runs lane by lane, and K4's comb with a thread count G
+that the test chooses.  The bucket MSM's bodies (K13's add with
 negation, K14's suffix-scan and tree steps and its 8-bit Horner ladder),
 K15's ladder and K16's Montgomery conversions are held against their
 plain versions (msm_bucket_cuda, msm_cuda.bexp_plain, add_cuda.add_plain)
@@ -234,15 +236,156 @@ def test_field_inverse_body_matches_pow(host_lib):
         assert _fe_canon(host_lib, r) == pow(v, P - 2, P), v
 
 
-@pytest.mark.parametrize("n", [1, 7, 40])
-def test_comb_body_matches_plain(host_lib, n, k):
-    pk, nw = k.mc.packed_digits(native._ints_to_u64x4(_scalars(n, 5), ELL))
-    table = k.mc.comb_table(EdwardsPoint.generator ** 12345, nw, "cpu")
-    tb = np.ascontiguousarray(k.ced.to_rows(table))
-    out = np.zeros((n, 16), np.uint64)
-    host_lib.host_comb_norm(_p(tb), _p(pk), n, nw, _p(out))
+def test_field_var_inverse_body_matches_pow(host_lib):
+    """K2's binary extended Euclid inversion on the relaxed edge values
+    (0 mod p gives 0) and random ones: canonical, and z^(p-2)."""
+    rng = random.Random(8)
+    for v in FE_EDGE + [2, P - 2, (P + 1) // 2] + [
+            rng.randrange(1 << 256) for _ in range(300)]:
+        x, r = _fe(v), np.zeros(4, np.uint64)
+        host_lib.host_fe_inv_var(_p(x), _p(r))
+        assert _fe_int(r) == pow(v, P - 2, P), v
+
+
+# K4's cases: id -> (n, threads G or None for G = n, base "identity" or a
+# power of the generator); G = 3 and 6 leave ragged groups, and thread 0's
+# group is all exponent 0 (also exponent 1 where n > 1)
+COMB_CASES = {"1": (1, None, "g"), "7": (7, None, "g"), "40": (40, None, "g"),
+              "7-G3": (7, 3, "g"), "40-G6": (40, 6, "g"),
+              "40-G6-identity": (40, 6, "identity")}
+
+
+def _comb_exponents(n, G, seed):
+    exps = _scalars(n, seed)
+    for i in [1] + list(range(0, n, G)):
+        if i < n:
+            exps[i] = 0
+    return exps
+
+
+@pytest.mark.parametrize("case", list(COMB_CASES))
+def test_comb_body_matches_plain(host_lib, case, k):
+    """K4's body over all G threads (each summing its exponents g, g + G,
+    ... over the affine table and normalizing them with one inversion)
+    against comb_plain and the C++ tier's batch-exp, output and scratch
+    filled with a sentinel first."""
+    n, G, kind = COMB_CASES[case]
+    G = G or n
+    exps = _comb_exponents(n, G, 5 * n)
+    pk, nw = k.mc.packed_digits(native._ints_to_u64x4(exps, ELL))
+    base = (EdwardsPoint.identity if kind == "identity"
+            else EdwardsPoint.generator ** 12345)
+    table = k.mc.comb_table(base, nw, "cpu")
+    tb = np.ascontiguousarray(table.numpy().view(np.uint64))
+    assert tb.shape == (nw * 9, 12)
+    out = np.full((n, 16), SENTINEL)
+    pre = np.full((n, 4), SENTINEL)
+    host_lib.host_comb_norm(_p(tb), _p(pk), n, nw, G, _p(pre), _p(out))
     plain = k.mc.comb_plain(table, k.torch.from_numpy(pk))
     assert np.array_equal(out, k.ced.to_rows(plain))
+    host = native._pts_to_u64(EdwardsPoint.batch_normalize(
+        native.ed_batch_exp(base, exps)))
+    assert np.array_equal(out, host)
+    ident = [0, 0, 0, 0, 1, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0]
+    zero = [i for i in range(n)
+            if i % G == 0 or i == 1 or kind == "identity"]
+    assert all(out[i].tolist() == ident for i in zero)
+
+
+def test_comb_table_rows_are_affine_multiples(k):
+    """K4's table rows: row w*9 + m is (y+x, y-x, 2dxy) of the normalized
+    m * 16^(nw-1-w) * base (m = 0: the identity's (1, 1, 0))."""
+    from verifiable_mpc_tpu_torch.groups.edwards import D
+
+    base = EdwardsPoint.generator ** 777
+    nw = 8
+    tb = k.mc.comb_table(base, nw, "cpu").numpy().view(np.uint64)
+    for w in range(nw):
+        for m in range(9):
+            pt = (base ** (m * 16 ** (nw - 1 - w))).normalize()
+            want = [(pt.y + pt.x) % P, (pt.y - pt.x) % P,
+                    2 * D * pt.x * pt.y % P]
+            row = tb[w * 9 + m]
+            assert [_fe_int(row[4 * j : 4 * j + 4]) for j in range(3)] == want
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 3, 4, 8])
+def test_coop_group_ops_match_plain(host_lib, lanes, k):
+    """K2's group operations with their products spread over 1-8 lanes,
+    the lanes run one after another, against the plain law (add-2008-hwcd-3,
+    dbl-2008-hwcd) on the same rows, coordinate for coordinate: random
+    points, the identity, P + P, P + (-P) and rows with Z != 1."""
+    pts = _rescaled_points(6, 11)  # point 2 the identity, 0 and 3 Z != 1
+    pts.append(-pts[0])
+    rows = np.ascontiguousarray(native._pts_to_u64(pts))
+    t = k.ced.split_rows(k.ced.from_reference_rows(rows, "cpu"))
+    pairs = [(0, 1), (2, 3), (4, 5), (5, 2), (2, 2), (1, 1), (0, 6), (3, 0)]
+    for i, j in pairs:
+        p = tuple(c[i : i + 1] for c in t)
+        q = tuple(c[j : j + 1] for c in t)
+        want = {0: k.ced.add(p, q), 1: k.ced.dbl(p)}
+        for op in (0, 1):
+            out = np.full(16, SENTINEL)
+            host_lib.host_ed_coop(op, lanes, _p(rows[i]), _p(rows[j]),
+                                  _p(out))
+            expect = k.ced.to_rows(k.ced.join_rows_relaxed(want[op]))[0]
+            assert np.array_equal(out, expect), (op, i, j)
+
+
+# K2's cases: id -> (B, nw, S, R, lanes L of the windows' sums, lanes Lc of
+# the Horners, window groups P, the window whose accumulators are all the
+# identity or None).  S = 7 with R = 3 and S = 5 with R = 2 leave a short
+# last chunk, S = 2 with R = 4 empty chunks, nw = 9 and 3 a short last
+# group and empty groups, P = 1 the one-group Horner
+TAIL_CASES = {"64-L4-P8": (1, 64, 3, 2, 4, 4, 8, 5),
+              "B2-9-L2-P4": (2, 9, 7, 3, 2, 2, 4, 0),
+              "B2-3-L1-P8": (2, 3, 5, 2, 1, 4, 8, None),
+              "8-L4-Lc8-P1": (1, 8, 4, 4, 4, 8, 1, 7),
+              "B2-64-S2-R4-P16": (2, 64, 2, 4, 4, 4, 16, 63),
+              "1-S1": (1, 1, 1, 1, 4, 4, 8, None)}
+
+
+@pytest.mark.parametrize("case", list(TAIL_CASES))
+def test_msm_tail_bodies_match_plain(host_lib, case, k):
+    """K2's reduce chunks and its combination (each window's partials, the
+    window groups' Horners, the shift and add, each step's lanes run one
+    after another) against msm_tail_plain and the C++ tier's MSM of the
+    accumulators by 16^(nw-1-w), the output and partials filled with a
+    sentinel first."""
+    B, nw, S, R, L, Lc, P_, ident = TAIL_CASES[case]
+    pts = _rescaled_points(B * nw * S, 3 * nw + S)
+    if ident is not None:
+        for b in range(B):
+            for s in range(S):
+                pts[(b * nw + ident) * S + s] = EdwardsPoint.identity
+    rows = np.ascontiguousarray(native._pts_to_u64(pts))
+    acc = rows.reshape(B, nw, S, 16)
+    part = np.full((B, nw, R, 16), SENTINEL)
+    out = np.full((B, 16), SENTINEL)
+    host_lib.host_msm_tail(_p(acc), _p(part), _p(out), B, nw, S, R, L, Lc,
+                           P_)
+    plain = k.mc.msm_tail_plain(k.ced.from_reference_rows(
+        rows, "cpu").reshape(B, nw, S, 16))
+    assert np.array_equal(out, k.ced.to_rows(plain))
+    sc = [16 ** (nw - 1 - w) % ELL for w in range(nw) for _ in range(S)]
+    for b in range(B):
+        host = native.ed_msm(pts[b * nw * S:(b + 1) * nw * S], sc)
+        assert native._u64_to_pts(out[b:b + 1])[0] == host
+
+
+def test_msm_tail_body_identity_result(host_lib, k):
+    """K2 where every window sums to the identity (P and -P in each): the
+    result is exactly the identity row (0, 1, 1, 0)."""
+    B, nw, S = 2, 3, 2
+    pts = []
+    for p in _rescaled_points(B * nw, 5):
+        pts += [p, -p]
+    rows = np.ascontiguousarray(native._pts_to_u64(pts))
+    part = np.full((B, nw, 1, 16), SENTINEL)
+    out = np.full((B, 16), SENTINEL)
+    host_lib.host_msm_tail(_p(rows), _p(part), _p(out), B, nw, S, 1, 4, 4, 8)
+    ident = [0, 0, 0, 0, 1, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0]
+    assert out.tolist() == [ident] * B
 
 
 def _rescaled_points(n, seed):

@@ -211,6 +211,27 @@ def test_comb_plain_matches_reference_batch_exp(n, plain_backends):
     assert [_affine(p) for p in got] == [_affine(p) for p in expect]
 
 
+# K4's edge exponents: 0 (the identity), ELL - 1 (one digit, negated) and
+# one whose digits are 0 from window 1 to window 61 (a run of zeros)
+COMB_EDGES = {"zero": [0, 0, 5], "order-1": [ELL - 1, 1, ELL - 2],
+              "zero-run": [(1 << 250) + 3, 9, 7 << 200]}
+
+
+@pytest.mark.parametrize("name", sorted(COMB_EDGES))
+def test_comb_affine_table_matches_reference_batch_exp(name, plain_backends,
+                                                       k):
+    """K4's affine table (y+x, y-x, 2dxy of normalized multiples) through
+    the dispatch at the edge exponents, against the reference package's
+    host law."""
+    base = _ref_points(1, 19)[0]
+    exps = COMB_EDGES[name]
+    table = k.mc.comb_table(_port(base), 64, "cpu")
+    assert table.shape == (64 * 9, 12)
+    got = dispatch.batch_exp(_port(base), exps)
+    assert [_affine(p) for p in got] == [_affine(base ** e) for e in exps]
+    assert all(p.z == 1 for p in got)
+
+
 @pytest.mark.parametrize("n", [1, 5])
 def test_reference_rows_round_trip(n, k):
     rows = _rows(_ref_points(n, 99))

@@ -21,14 +21,15 @@ from . import fields
 from . import groups
 
 # Batch sizes from which enable_gpu's backends take a call (below, the C++
-# host tier serves it), from chip_smoke.py's H100 runs (PERF.md): the
-# Ed25519 kernels and the BN comb win from 512; the BN MSM loses to the C++
-# tier up to 1024 points (K6's serial Horner thread and the host's point
-# and digit conversions cost it ~7 ms whatever the size), ties at 2048 and
-# wins from 4096.  The twist MSM and batch-exp (K9-K11) share
-# BN2_MIN_BATCH: the twist MSM ties the C++ tier at 1024 points (K10's
-# serial Horner thread, ~18 ms, sets a ~22 ms floor) and wins from 2048;
-# the twist batch-exp wins from 256.
+# host tier serves it).  In chip_smoke.py's tier sweeps on an H100 (PERF.md
+# §7), encode to decode as the dispatch calls them, with every MSM tail
+# (K2, K6, K10) a one-block combination: the Ed25519 MSM has a floor of
+# about 2 ms and beats the C++ tier from 512 points, about even with it at
+# 128-256; the Ed25519 comb wins from 128 exponents; the BN MSM (floor
+# about 3 ms) and comb win from 256; the twist MSM (floor about 11 ms) and
+# batch-exp (K9-K11, which share BN2_MIN_BATCH) win from 256.  The
+# thresholds were set before these sweeps and stay until a benchmark's
+# cells decide them.
 MIN_MSM_BATCH = 512
 BN_MIN_MSM_BATCH = 4096
 BN2_MIN_BATCH = 2048

@@ -334,6 +334,7 @@ FE_FN void bn_msm_accum_one(const uint64_t *tbl, const uint8_t *digits,
 // one lane group's shared slots: v holds the point (X, Y, Z), an add's
 // other operand and 0 (v[6]); m the products of an operation's two levels
 struct g1_coop {
+  static constexpr int COORDS = 3;
   fp v[7];
   fp m[2][6];
 };

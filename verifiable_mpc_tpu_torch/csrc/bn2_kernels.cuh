@@ -426,6 +426,7 @@ FE_FN void bn2_msm_accum_one(const uint64_t *tbl, const uint8_t *digits,
 // operand and 0 (v[6]); p a level's base-field products (the first and the
 // third level's); q the products by 3b'; u the third level's operands
 struct g2_coop {
+  static constexpr int COORDS = 3;
   fp2 v[7];
   fp p[18];
   fp q[6];

@@ -1,6 +1,7 @@
-// The lane groups of the MSM tails' combinations (K6 over BN256 G1 in
-// bn254_kernels.cuh, K10 over the twist in bn2_kernels.cuh), and the
-// combination's steps, which both tails share.
+// The lane groups of the MSM tails' combinations (K2 over Ed25519 in
+// ed25519_kernels.cuh, K6 over BN256 G1 in bn254_kernels.cuh, K10 over the
+// twist in bn2_kernels.cuh), and the combination's steps, which the three
+// tails share.
 //
 // A group operation runs on a group of L lanes that share slots in shared
 // memory: lane l computes the products k = l, l + L, ... of a level of
@@ -63,54 +64,70 @@ __device__ __forceinline__ CoopLanes coop_lanes(int L) {
 // The combination of an MSM tail, over a curve's lane-group slots
 // ---------------------------------------------------------------------------
 //
-// A curve's slots (g1_coop over fp, g2_coop over fp2) hold v[7]: the point
-// (X, Y, Z) in v[0..2], an add's other operand in v[3..5] and 0 in v[6].
-// Its header gives, for its slots and field elements, coop_load_row (three
-// slots <- a working row), coop_copy (three slots <- three slots), coop_add
-// (v[0..2] += v[3..5]), coop_dbl (v[0..2] *= 2) and coop_store_normalized
-// (the normalized result row of v[0..2], one lane); the steps below find
-// them where a kernel or the host harness instantiates them.  A working row
-// is the three coordinates' words.
+// A curve's slots (ed_coop over fe, g1_coop over fp, g2_coop over fp2) hold
+// a point of C = Slots::COORDS coordinates (4 for Ed25519's X, Y, Z, T; 3
+// for the BN curves' X, Y, Z) in v[0..C), an add's other operand in
+// v[C..2C) and 0 in v[2C].  Its header gives, for its slots and field
+// elements, coop_load_row (C slots <- a working row), coop_copy (C slots <-
+// C slots), coop_add (v[0..C) += v[C..2C)), coop_dbl (v[0..C) *= 2) and
+// coop_store_normalized (the normalized result row of v[0..C), one lane);
+// a curve whose add reads its operand in another form than the point's
+// (Ed25519: 2d T in place of T) also gives coop_operand; the steps below
+// find them where a kernel or the host harness instantiates them.  A
+// working row is the C coordinates' words.
+
+// v[k..k+C) <- the form in which coop_add reads its operand: nothing for a
+// curve whose add reads the point as it is (G1, the twist)
+template <class Lanes, class Slots>
+FE_FN void coop_operand(const Lanes &, Slots &, int) {}
 
 // window w's sum: its R partials part [R][row] (working rows), summed in
-// order into v[0..2] and copied to wsum [3]
+// order into v[0..C) and copied to wsum [C] in the operand's form (the
+// window sums are the Horners' operands; as a Horner's start, its first
+// step is a doubling or it is an operand of tail_shift)
 template <class Lanes, class Slots, class E>
 FE_FN void tail_window(const Lanes &ex, Slots &s, const uint64_t *part,
                        int R, E *wsum) {
-  const size_t row = 3 * sizeof(E) / sizeof(uint64_t);
+  constexpr int C = Slots::COORDS;
+  const size_t row = C * sizeof(E) / sizeof(uint64_t);
   ex.run([&](int l) {
     coop_load_row(s.v, part, l, ex.L);
-    if (l == 0) s.v[6] = {};
+    if (l == 0) s.v[2 * C] = {};
   });
   for (int r = 1; r < R; r++) {
-    ex.run([&](int l) { coop_load_row(s.v + 3, part + r * row, l, ex.L); });
+    ex.run([&](int l) { coop_load_row(s.v + C, part + r * row, l, ex.L); });
+    coop_operand(ex, s, C);
     coop_add(ex, s);
   }
+  coop_operand(ex, s, 0);
   ex.run([&](int l) { coop_copy(wsum, s.v, l, ex.L); });
 }
 
 // group j's Horner over its windows (most significant first) of the
-// window sums wsum [nw][3]: v[0..2] = sum_{w in [a, b)} 16^(b-1-w) S_w (an
-// empty group does nothing: tail_shift stops before it)
+// window sums wsum [nw][C]: v[0..C) = sum_{w in [a, b)} 16^(b-1-w) S_w, left
+// in the operand's form (an empty group does nothing: tail_shift stops
+// before it)
 template <class Lanes, class Slots, class Sums>
 FE_FN void tail_group(const Lanes &ex, Slots &s, Sums wsum, int j, int nw,
                       int P) {
+  constexpr int C = Slots::COORDS;
   int a, b;
   tail_span(j, nw, P, a, b);
   if (a == b) return;
   ex.run([&](int l) {
     coop_copy(s.v, wsum[a], l, ex.L);
-    if (l == 0) s.v[6] = {};
+    if (l == 0) s.v[2 * C] = {};
   });
   for (int w = a + 1; w < b; w++) {
     for (int i = 0; i < 4; i++) coop_dbl(ex, s);
-    ex.run([&](int l) { coop_copy(s.v + 3, wsum[w], l, ex.L); });
+    ex.run([&](int l) { coop_copy(s.v + C, wsum[w], l, ex.L); });
     coop_add(ex, s);
   }
+  if (b > a + 1) coop_operand(ex, s, 0);
 }
 
 // group 0 after every group's Horner: shift and add the groups' sums
-// (sh[j].v[0..2] of group j), 16^(nw - b_j) H_j, into sh[0], then its
+// (sh[j].v[0..C) of group j), 16^(nw - b_j) H_j, into sh[0], then its
 // normalized result row (lane 0)
 template <class Lanes, class Slots>
 FE_FN void tail_shift(const Lanes &ex, Slots *sh, int nw, int P,
@@ -121,7 +138,9 @@ FE_FN void tail_shift(const Lanes &ex, Slots *sh, int nw, int P,
     tail_span(j, nw, P, a, b);
     if (a == b) break;
     for (int i = 0; i < 4 * (b - prev); i++) coop_dbl(ex, sh[0]);
-    ex.run([&](int l) { coop_copy(sh[0].v + 3, sh[j].v, l, ex.L); });
+    ex.run([&](int l) {
+      coop_copy(sh[0].v + Slots::COORDS, sh[j].v, l, ex.L);
+    });
     coop_add(ex, sh[0]);
     prev = b;
   }
@@ -133,14 +152,15 @@ FE_FN void tail_shift(const Lanes &ex, Slots *sh, int nw, int P,
 #if defined(__CUDACC__)
 // the combination kernel's body, for batch blockIdx.x: part [B][nw][R][row]
 // -> out [B][row].  The groups of L lanes sum each window's R partials (a
-// group per window, sh[nw] and wsum[nw][3] in shared memory), then P groups
+// group per window, sh[nw] and wsum[nw][C] in shared memory), then P groups
 // of Lc lanes run a Horner each over a run of ceil(nw / P) windows, then
 // group 0 shifts, adds and normalizes.
-template <int L, int Lc, int P, class Slots, class E>
-__device__ __forceinline__ void tail_combine(Slots *sh, E (*wsum)[3],
+template <int L, int Lc, int P, class Slots, class E, int C>
+__device__ __forceinline__ void tail_combine(Slots *sh, E (*wsum)[C],
                                              const uint64_t *part,
                                              uint64_t *out, int nw, int R) {
-  const size_t row = 3 * sizeof(E) / sizeof(uint64_t);
+  static_assert(C == Slots::COORDS, "a window sum is one point");
+  const size_t row = C * sizeof(E) / sizeof(uint64_t);
   int grp = threadIdx.x / L;
   if (grp < nw)
     tail_window(coop_lanes(L), sh[grp],

@@ -8,7 +8,9 @@
 //   point row    16 x u64: x, y, z, t, four u64 limbs each (the row format
 //                of native._pts_to_u64)
 //   pre row      16 x u64: Y+X, Y-X, 2dT, 2Z (precomputed form)
+//   affine row   12 x u64: y+x, y-x, 2dxy (affine precomputed form, Z = 1)
 //   K1 table     pre rows [n][8]: each point's multiples 1..8
+//   K4 table     affine rows [nw*9]: row w*9 + m = m * 16^(nw-1-w) * base
 //   packed digits u8 [nw/2][n] (digits.cuh)
 //   bucket layout int32 [nw][D][lanes] perm (point index, -1 = padding)
 //                and sgn (1 = negate), msm_bucket_cuda.bucket_layout
@@ -17,6 +19,7 @@
 
 #pragma once
 
+#include "coop.cuh"
 #include "digits.cuh"
 #include "fe25519.cuh"
 
@@ -88,9 +91,9 @@ FE_FN void msm_accum_one(const uint64_t *tbl, const uint8_t *digits,
   ge_store(acc_row, acc);
 }
 
-// K2 second phase body (B2's Horner, msm_pallas._make_tail_kernel), also
-// K14's (B7's Horner, with bits = 8): window sums [nw] (most significant
-// first) -> canonical normalized row of sum_w 2^(bits (nw-1-w)) wsum[w].
+// K14's Horner (B7's, msm_bucket._make_reduce_kernel, bits = 8), one
+// thread: window sums [nw] (most significant first) -> canonical normalized
+// row of sum_w 2^(bits (nw-1-w)) wsum[w].
 FE_FN void msm_horner_one(const uint64_t *wsum, uint64_t *out_row, int nw,
                           int bits) {
   ge_ext h;
@@ -107,6 +110,155 @@ FE_FN void msm_horner_one(const uint64_t *wsum, uint64_t *out_row, int nw,
     h = t;
   }
   ge_store_normalized(out_row, h);
+}
+
+// ---------------------------------------------------------------------------
+// K2 (B2, msm_pallas._make_tail_kernel): the window sums' combination
+// spread over lanes
+// ---------------------------------------------------------------------------
+//
+// A group operation runs on a group of L lanes that share one ed_coop in
+// shared memory (coop.cuh's steps, as K6's and K10's).  Both operations
+// are two levels of four independent products, and lane l computes the
+// level's products k = l, l + L, ... (every lane the same fe_mul on
+// operands it picks by k):
+//   doubling (dbl-2008-hwcd, a = -1): X^2, Y^2, Z^2, (X + Y)^2, then
+//     E F, G H, F G, E H;
+//   add (add-2008-hwcd-3, complete): (Y1 - X1)(Y2 - X2), (Y1 + X1)(Y2 +
+//     X2), T1 2dT2, Z1 2Z2, then the same four.
+// The add reads its operand with 2d T in place of T (coop_operand), so its
+// first level holds no product of a product; the window sums and the
+// groups' Horner sums are stored in that form once, off the chain of
+// doublings, and the doubling and the normalization read no T.  T of a
+// doubling costs no time: with four lanes its product runs beside the
+// other three.  The second level's products are the result, written
+// straight to v[0..3], which that level does not read.  The final
+// inversion, one lane's, is the binary extended Euclid algorithm
+// (fe_inv_var): shifts and subtractions where the Fermat chain runs 265
+// dependent products.
+
+// one lane group's shared slots: v the point (X, Y, Z, T), an add's other
+// operand (X, Y, Z, 2dT) and 0 (v[8]); m the first level's products
+struct ed_coop {
+  static constexpr int COORDS = 4;
+  fe v[9];
+  fe m[4];
+};
+
+// the second level from e, f, g, h: v[0..3] = e f, g h, f g, e h
+FE_FN void ed_coop_fin(ed_coop &s, int lane, int L, const fe &e, const fe &f,
+                       const fe &g, const fe &h) {
+  for (int k = lane; k < 4; k += L) {
+    fe a = e, b = f, r;
+    fe_pick(a, k == 1, g);
+    fe_pick(a, k == 2, f);
+    fe_pick(b, k & 1, h);
+    fe_pick(b, k == 2, g);
+    fe_mul(r, a, b);
+    s.v[k] = r;
+  }
+}
+
+// doubling, level 1: X^2, Y^2, Z^2, (X + Y)^2
+FE_FN void ed_coop_dbl_lv1(ed_coop &s, int lane, int L) {
+  for (int k = lane; k < 4; k += L) {
+    fe a, r;
+    fe_add(a, s.v[0], s.v[1]);
+    fe_pick(a, k < 3, s.v[k < 3 ? k : 0]);
+    fe_sq(r, a);
+    s.m[k] = r;
+  }
+}
+
+// doubling, level 2: c = 2 Z^2, e = (X + Y)^2 - X^2 - Y^2, g = Y^2 - X^2,
+// f = g - c, h = -(X^2 + Y^2)
+FE_FN void ed_coop_dbl_lv2(ed_coop &s, int lane, int L) {
+  fe c, e, f, g, h;
+  fe_add(c, s.m[2], s.m[2]);
+  fe_sub(e, s.m[3], s.m[0]);
+  fe_sub(e, e, s.m[1]);
+  fe_sub(g, s.m[1], s.m[0]);
+  fe_sub(f, g, c);
+  fe_add(h, s.m[0], s.m[1]);
+  fe_neg(h, h);
+  ed_coop_fin(s, lane, L, e, f, g, h);
+}
+
+// add, level 1 (v[0..3] + v[4..7], the operand as (X, Y, Z, 2dT)): product
+// k of a = v[i] + v[j] and b = v[i'] + v[j'] (the zero slot v[8] where a
+// factor is one slot), both differences for k = 0
+FE_FN void ed_coop_add_lv1(ed_coop &s, int lane, int L) {
+  for (int k = lane; k < 4; k += L) {
+    fe a, b, t, r;
+    int i = nib(0x2311u, k), j = nib(0x8800u, k);
+    int i2 = nib(0x6755u, k), j2 = nib(0x6844u, k);
+    fe_add(a, s.v[i], s.v[j]);
+    fe_sub(t, s.v[i], s.v[j]);
+    fe_pick(a, k == 0, t);
+    fe_add(b, s.v[i2], s.v[j2]);
+    fe_sub(t, s.v[i2], s.v[j2]);
+    fe_pick(b, k == 0, t);
+    fe_mul(r, a, b);
+    s.m[k] = r;
+  }
+}
+
+// add, level 2: e = B - A, f = D - C, g = D + C, h = B + A
+FE_FN void ed_coop_add_lv2(ed_coop &s, int lane, int L) {
+  fe e, f, g, h;
+  fe_sub(e, s.m[1], s.m[0]);
+  fe_sub(f, s.m[3], s.m[2]);
+  fe_add(g, s.m[3], s.m[2]);
+  fe_add(h, s.m[1], s.m[0]);
+  ed_coop_fin(s, lane, L, e, f, g, h);
+}
+
+// slots dst[0..3] <- a point row (16 u64), the words split over the lanes
+FE_FN void coop_load_row(fe *dst, const uint64_t *row, int lane, int L) {
+  for (int i = lane; i < 16; i += L) {
+    uint64_t x = row[i];
+    dst[i >> 2].v[2 * (i & 3)] = (uint32_t)x;
+    dst[i >> 2].v[2 * (i & 3) + 1] = (uint32_t)(x >> 32);
+  }
+}
+
+// slots dst[0..3] <- src[0..3], the words split over the lanes
+FE_FN void coop_copy(fe *dst, const fe *src, int lane, int L) {
+  for (int i = lane; i < 32; i += L) dst[i >> 3].v[i & 7] = src[i >> 3].v[i & 7];
+}
+
+// v[k + 3] = 2d v[k + 3]: the point v[k..k+3] as an add's operand
+template <class Lanes>
+FE_FN void coop_operand(const Lanes &ex, ed_coop &s, int k) {
+  ex.run([&](int l) {
+    if (l == 0) {
+      fe two_d, r;
+      fe_two_d(two_d);
+      fe_mul(r, s.v[k + 3], two_d);
+      s.v[k + 3] = r;
+    }
+  });
+}
+
+// v[0..3] = 2 v[0..3]
+template <class Lanes>
+FE_FN void coop_dbl(const Lanes &ex, ed_coop &s) {
+  ex.run([&](int l) { ed_coop_dbl_lv1(s, l, ex.L); });
+  ex.run([&](int l) { ed_coop_dbl_lv2(s, l, ex.L); });
+}
+
+// v[0..3] = v[0..3] + v[4..7]
+template <class Lanes>
+FE_FN void coop_add(const Lanes &ex, ed_coop &s) {
+  ex.run([&](int l) { ed_coop_add_lv1(s, l, ex.L); });
+  ex.run([&](int l) { ed_coop_add_lv2(s, l, ex.L); });
+}
+
+// the canonical affine row of v[0..3] (out [16]); T is not read
+FE_FN void coop_store_normalized(uint64_t *out, const ed_coop &s) {
+  fe zinv;
+  fe_inv_var(zinv, s.v[2]);
+  ge_store_affine(out, s.v[0], s.v[1], zinv);
 }
 
 // Montgomery's trick over one thread's group of rows i = g, g + G, g + 2G,
@@ -206,24 +358,33 @@ FE_FN void fold_group(const uint64_t *gl, const uint64_t *gr,
 }
 
 // K4 body (B5, msm_pallas._make_bexp_comb_kernel + normalize_pack):
-// out_i = sum_w T[w][d_w(e_i)], one select and one mixed add per window,
-// no doublings; table rows are precomputed-form entries, row w*9 + m
-// holding m * 16^(nw-1-w) * base.
-FE_FN void comb_norm_one(const uint64_t *table, const uint8_t *digits, int n,
-                         int nw, int i, uint64_t *out_row) {
-  ge_ext acc;
-  ge_identity(acc);
-  for (int w = 0; w < nw; w++) {
-    int d = digit_at(digits, n, w, i);
-    if (d == 0) continue;
-    ge_pre sel;
-    ge_pre_load(sel, table + (size_t)(w * 9 + (d < 0 ? -d : d)) * 16);
-    if (d < 0) ge_pre_neg(sel);
-    ge_ext t;
-    ge_add_pre(t, acc, sel);
-    acc = t;
+// base^e_i for the exponents i = g, g + G, g + 2G, ... < n of one thread,
+// each out_i = sum_w T[w][d_w(e_i)]: the first window's entry as an
+// extended point, then one table read and, for a nonzero digit, one mixed
+// add of the affine entry per window, no doublings (the last add needs no
+// T, but leaving it out behind a branch ran slower on an H100).  Table row
+// w*9 + m (an affine row) holds m * 16^(nw-1-w) * base; rows m = 0 are the
+// identity (1, 1, 0).  The sums
+// go to their out rows as extended points and leave as canonical affine
+// rows by one inversion for the group (ed_normalize_group, pre its
+// scratch); a sum's Z is never 0, an exponent 0's too.
+FE_FN void comb_group(const uint64_t *table, const uint8_t *digits, int n,
+                      int nw, int g, int G, uint64_t *pre, uint64_t *out) {
+  for (int i = g; i < n; i += G) {
+    int d = digit_at(digits, n, 0, i);
+    ge_aff q;
+    ge_aff_load(q, table + (size_t)(d < 0 ? -d : d) * 12);
+    ge_ext acc;
+    ge_aff_to_ext(acc, q, d < 0);
+    for (int w = 1; w < nw; w++) {
+      d = digit_at(digits, n, w, i);
+      if (d == 0) continue;
+      ge_aff_load(q, table + (size_t)(w * 9 + (d < 0 ? -d : d)) * 12);
+      ge_add_aff_signed(acc, acc, q, d < 0);
+    }
+    ge_store(out + (size_t)i * 16, acc);
   }
-  ge_store_normalized(out_row, acc);
+  ed_normalize_group(out, pre, n, g, G);
 }
 
 // ---------------------------------------------------------------------------

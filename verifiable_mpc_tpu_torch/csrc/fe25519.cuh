@@ -44,8 +44,18 @@ struct ge_pre {
   fe ypx, ymx, t2d, z2;
 };
 
+// affine precomputed form (y+x, y-x, 2dxy), Z = 1: a mixed addition costs 7
+struct ge_aff {
+  fe ypx, ymx, t2d;
+};
+
 FE_FN void fe_zero(fe &r) {
   for (int i = 0; i < 8; i++) r.v[i] = 0;
+}
+
+// r = c ? a : r, without a branch
+FE_FN void fe_pick(fe &r, bool c, const fe &a) {
+  for (int i = 0; i < 8; i++) r.v[i] = c ? a.v[i] : r.v[i];
 }
 
 FE_FN void fe_small(fe &r, uint32_t c) {
@@ -202,6 +212,84 @@ FE_FN void fe_inv(fe &r, const fe &z) {
   fe_mul(a, t, z2_50_0);
   fe_sqn(t, a, 5);
   fe_mul(r, t, z11);
+}
+
+// 1/z by the binary extended Euclid algorithm (variable time: for one
+// lane's lone inversion, K2's, whose Fermat chain is 265 dependent
+// products; about 510 halvings and 255 subtractions of 8-limb values,
+// no product).  Invariants x1 z == u and x2 z == v (mod p), x1, x2 < p;
+// z == 0 (mod p) gives 0, as the Fermat chain does.
+FE_FN void fe_inv_var(fe &r, const fe &z) {
+  const uint32_t p[8] = {0xffffffedu, 0xffffffffu, 0xffffffffu, 0xffffffffu,
+                         0xffffffffu, 0xffffffffu, 0xffffffffu, 0x7fffffffu};
+  fe u, v, x1, x2;
+  fe_canon(u, z);
+  uint32_t any = 0;
+  for (int i = 0; i < 8; i++) any |= u.v[i];
+  if (!any) {
+    fe_zero(r);
+    return;
+  }
+  for (int i = 0; i < 8; i++) v.v[i] = p[i];
+  fe_small(x1, 1);
+  fe_zero(x2);
+  // a /= 2 with x = x / 2 mod p (x + p when x is odd; x + p < 2^256)
+  auto halve = [&](fe &a, fe &x) {
+    for (int i = 0; i < 7; i++) a.v[i] = (a.v[i] >> 1) | (a.v[i + 1] << 31);
+    a.v[7] >>= 1;
+    uint32_t odd = x.v[0] & 1;
+    uint64_t c = 0;
+    for (int i = 0; i < 8; i++) {
+      c += (uint64_t)x.v[i] + (odd ? p[i] : 0);
+      x.v[i] = (uint32_t)c;
+      c >>= 32;
+    }
+    for (int i = 0; i < 7; i++) x.v[i] = (x.v[i] >> 1) | (x.v[i + 1] << 31);
+    x.v[7] >>= 1;
+  };
+  // a -= b (a >= b) with x = x - y mod p
+  auto sub = [&](fe &a, const fe &b, fe &x, const fe &y) {
+    uint64_t br = 0;
+    for (int i = 0; i < 8; i++) {
+      uint64_t d = (uint64_t)a.v[i] - b.v[i] - br;
+      a.v[i] = (uint32_t)d;
+      br = d >> 63;
+    }
+    br = 0;
+    for (int i = 0; i < 8; i++) {
+      uint64_t d = (uint64_t)x.v[i] - y.v[i] - br;
+      x.v[i] = (uint32_t)d;
+      br = d >> 63;
+    }
+    uint64_t c = 0;
+    for (int i = 0; i < 8; i++) {
+      c += (uint64_t)x.v[i] + (br ? p[i] : 0);
+      x.v[i] = (uint32_t)c;
+      c >>= 32;
+    }
+  };
+  auto is_one = [](const fe &a) {
+    uint32_t rest = a.v[0] ^ 1;
+    for (int i = 1; i < 8; i++) rest |= a.v[i];
+    return rest == 0;
+  };
+  while (!is_one(u) && !is_one(v)) {
+    while (!(u.v[0] & 1)) halve(u, x1);
+    while (!(v.v[0] & 1)) halve(v, x2);
+    bool ge = true;
+    for (int i = 7; i >= 0; i--) {
+      if (u.v[i] != v.v[i]) {
+        ge = u.v[i] > v.v[i];
+        break;
+      }
+    }
+    if (ge) {
+      sub(u, v, x1, x2);
+    } else {
+      sub(v, u, x2, x1);
+    }
+  }
+  r = is_one(u) ? x1 : x2;
 }
 
 // ---------------------------------------------------------------------------
@@ -362,6 +450,40 @@ FE_FN void ge_add_pre_signed(ge_ext &r, const ge_ext &p, const ge_pre &q,
   fe_mul(r.T, e, h);
 }
 
+// row of 12 u64: y+x, y-x, 2dxy
+FE_FN void ge_aff_load(ge_aff &q, const uint64_t *row) {
+  fe_load(q.ypx, row);
+  fe_load(q.ymx, row + 4);
+  fe_load(q.t2d, row + 8);
+}
+
+// p + q for neg false, p - q for neg true, q affine in precomputed form:
+// ge_add_pre_signed with 2Z2 = 2, so D = 2 Z1 is an addition (7
+// products).  r may be p.
+FE_FN void ge_add_aff_signed(ge_ext &r, const ge_ext &p, const ge_aff &q,
+                             bool neg) {
+  fe a, b, c, d, e, f, g, h, t;
+  fe_sub(t, p.Y, p.X);
+  fe_mul(a, t, neg ? q.ypx : q.ymx);
+  fe_add(t, p.Y, p.X);
+  fe_mul(b, t, neg ? q.ymx : q.ypx);
+  fe_mul(c, p.T, q.t2d);
+  fe_add(d, p.Z, p.Z);
+  fe_sub(e, b, a);
+  if (neg) {
+    fe_add(f, d, c);
+    fe_sub(g, d, c);
+  } else {
+    fe_sub(f, d, c);
+    fe_add(g, d, c);
+  }
+  fe_add(h, b, a);
+  fe_mul(r.X, e, f);
+  fe_mul(r.Y, g, h);
+  fe_mul(r.Z, f, g);
+  fe_mul(r.T, e, h);
+}
+
 // -(Y+X, Y-X, 2dT, 2Z) = (Y-X, Y+X, -2dT, 2Z)  (neg_where_pre)
 FE_FN void ge_pre_neg(ge_pre &q) {
   fe t = q.ypx;
@@ -370,17 +492,38 @@ FE_FN void ge_pre_neg(ge_pre &q) {
   fe_neg(q.t2d, q.t2d);
 }
 
+// 1/d mod p
+FE_FN void fe_inv_d(fe &r) {
+  const uint32_t k[8] = {0xcdc9f843u, 0x25e0f276u, 0x4279542eu, 0x0b5dd698u,
+                         0xcdb9cf66u, 0x2b162114u, 0x14d5ce43u, 0x40907ed2u};
+  for (int i = 0; i < 8; i++) r.v[i] = k[i];
+}
+
 // precomputed form -> extended: (Y+X, Y-X, 2dT, 2Z) gives (2X : 2Y : 2Z :
 // 2T), the same point, with 2T = 2dT / d (one product)
 FE_FN void ge_pre_to_ext(ge_ext &r, const ge_pre &q) {
-  const uint32_t k[8] = {0xcdc9f843u, 0x25e0f276u, 0x4279542eu, 0x0b5dd698u,
-                         0xcdb9cf66u, 0x2b162114u, 0x14d5ce43u, 0x40907ed2u};
   fe inv_d;
-  for (int i = 0; i < 8; i++) inv_d.v[i] = k[i];
+  fe_inv_d(inv_d);
   fe_sub(r.X, q.ypx, q.ymx);
   fe_add(r.Y, q.ypx, q.ymx);
   r.Z = q.z2;
   fe_mul(r.T, q.t2d, inv_d);
+}
+
+// +-q affine in precomputed form -> extended (2x : 2y : 2 : 2xy) (one
+// product); -(y+x, y-x, 2dxy) = (y-x, y+x, -2dxy)
+FE_FN void ge_aff_to_ext(ge_ext &r, const ge_aff &q, bool neg) {
+  fe inv_d, t;
+  fe_inv_d(inv_d);
+  fe_sub(r.X, neg ? q.ymx : q.ypx, neg ? q.ypx : q.ymx);
+  fe_add(r.Y, q.ypx, q.ymx);
+  fe_small(r.Z, 2);
+  fe_mul(t, q.t2d, inv_d);
+  if (neg) {
+    fe_neg(r.T, t);
+  } else {
+    r.T = t;
+  }
 }
 
 // canonical affine row (x, y, 1, x*y) of (X : Y : Z) given zinv = 1/Z

@@ -19,7 +19,7 @@
 #include "ed25519_kernels.cuh"
 #include "probe_ops.cuh"
 
-// the combination of K6 or K10 (coop.cuh's tail steps) for each batch:
+// the combination of K2, K6 or K10 (coop.cuh's tail steps) for each batch:
 // part [B][nw][R][row] -> out [B][row], L lanes a group of the windows'
 // sums, Lc lanes a group of the Horners and the shift, P window groups;
 // the groups run one after another between the kernel's block barriers,
@@ -27,9 +27,10 @@
 template <class Slots, class E>
 static void host_tail_combine(const uint64_t *part, uint64_t *out, int B,
                               int nw, int R, int L, int Lc, int P) {
-  const size_t row = 3 * sizeof(E) / sizeof(uint64_t);
+  constexpr int C = Slots::COORDS;
+  const size_t row = C * sizeof(E) / sizeof(uint64_t);
   Slots *sh = new Slots[64];
-  E(*wsum)[3] = new E[64][3];
+  E(*wsum)[C] = new E[64][C];
   CoopLanes ex = {0, L, 0}, ec = {0, Lc, 0};
   for (int b = 0; b < B; b++) {
     for (int g = 0; g < nw; g++)
@@ -61,27 +62,61 @@ void host_msm_accum(const uint64_t *tbl, const uint8_t *digits, int B, int n,
                       acc + ((size_t)(b * nw + w) * S + s) * 16, n, w, s, S);
 }
 
+// K2 with R chunks a window, L lanes a group of the windows' sums, Lc
+// lanes a group of the Horners and the shift, and P window groups, as
+// host_bn2_msm_tail: acc [B][nw][S][16] -> part [B][nw][R][16] (scratch)
+// -> out [B][16]
+void host_msm_tail(const uint64_t *acc, uint64_t *part, uint64_t *out, int B,
+                   int nw, int S, int R, int L, int Lc, int P) {
+  int chunk = (S + R - 1) / R;
+  for (int b = 0; b < B; b++)
+    for (int w = 0; w < nw; w++)
+      for (int r = 0; r < R; r++) {
+        ge_ext sum;
+        ge_identity(sum);
+        for (int s = r * chunk; s < S && s < (r + 1) * chunk; s++) {
+          ge_ext p, t;
+          ge_load(p, acc + ((size_t)(b * nw + w) * S + s) * 16);
+          ge_add(t, sum, p);
+          sum = t;
+        }
+        ge_store(part + ((size_t)(b * nw + w) * R + r) * 16, sum);
+      }
+  host_tail_combine<ed_coop, fe>(part, out, B, nw, R, L, Lc, P);
+}
+
+// one of K2's group operations on L lanes, run lane by lane: out = p + q
+// (op 0) or 2 p (op 1); point rows [16] in, canonical coordinates out
+void host_ed_coop(int op, int L, const uint64_t *p, const uint64_t *q,
+                  uint64_t *out) {
+  ed_coop s;
+  CoopLanes ex = {0, L, 0};
+  coop_load_row(s.v, p, 0, 1);
+  coop_load_row(s.v + 4, q, 0, 1);
+  fe_zero(s.v[8]);
+  if (op == 0) {
+    coop_operand(ex, s, 4);
+    coop_add(ex, s);
+  } else {
+    coop_dbl(ex, s);
+  }
+  for (int c = 0; c < 4; c++) {
+    fe r;
+    fe_canon(r, s.v[c]);
+    fe_store(out + 4 * c, r);
+  }
+}
+
 // K1 then K2 for one batch: pts [n][16], tbl [n][8][16] scratch,
-// digits [nw/2][n] -> out [16]
+// digits [nw/2][n] -> out [16] (part [nw][16]: K2's partials at R = 1)
 void host_msm(const uint64_t *pts, uint64_t *tbl, const uint8_t *digits,
-              int n, int nw, int S, uint64_t *acc, uint64_t *wsum,
+              int n, int nw, int S, uint64_t *acc, uint64_t *part,
               uint64_t *out) {
   host_msm_table(pts, tbl, n);
   for (int w = 0; w < nw; w++)
     for (int s = 0; s < S; s++)
       msm_accum_one(tbl, digits, acc + ((size_t)w * S + s) * 16, n, w, s, S);
-  for (int w = 0; w < nw; w++) {
-    ge_ext sum;
-    ge_identity(sum);
-    for (int s = 0; s < S; s++) {
-      ge_ext p, t;
-      ge_load(p, acc + ((size_t)w * S + s) * 16);
-      ge_add(t, sum, p);
-      sum = t;
-    }
-    ge_store(wsum + (size_t)w * 16, sum);
-  }
-  msm_horner_one(wsum, out, nw, 4);
+  host_msm_tail(acc, part, out, 1, nw, S, 1, 4, 4, 8);
 }
 
 // K3 with G threads: gl, gr [n][16], cdig nd NAF digits, pre [n][4],
@@ -92,10 +127,11 @@ void host_fold_norm(const uint64_t *gl, const uint64_t *gr,
   for (int g = 0; g < G; g++) fold_group(gl, gr, cdig, nd, n, g, G, pre, out);
 }
 
+// K4 with G threads: table [nw*9][12] affine rows, digits [nw/2][n],
+// pre [n][4], out [n][16]
 void host_comb_norm(const uint64_t *table, const uint8_t *digits, int n,
-                    int nw, uint64_t *out) {
-  for (int i = 0; i < n; i++)
-    comb_norm_one(table, digits, n, nw, i, out + (size_t)i * 16);
+                    int nw, int G, uint64_t *pre, uint64_t *out) {
+  for (int g = 0; g < G; g++) comb_group(table, digits, n, nw, g, G, pre, out);
 }
 
 // K13: pts [n][16], pre [n][16] scratch, perm and sgn [nw][D][lanes],
@@ -199,6 +235,13 @@ void host_fe_inv(const uint64_t *a, uint64_t *r) {
   fe x, z;
   fe_load(x, a);
   fe_inv(z, x);
+  fe_store(r, z);
+}
+
+void host_fe_inv_var(const uint64_t *a, uint64_t *r) {
+  fe x, z;
+  fe_load(x, a);
+  fe_inv_var(z, x);
   fe_store(r, z);
 }
 

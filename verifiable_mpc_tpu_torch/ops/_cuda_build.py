@@ -65,10 +65,11 @@ def lib():
         so = ctypes.CDLL(LIB)
         vp, ci = ctypes.c_void_p, ctypes.c_int
         so.vmpc_cu_msm_accum.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
-        so.vmpc_cu_msm_tail.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+        so.vmpc_cu_msm_tail.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
         so.vmpc_cu_fold_norm.argtypes = [vp, vp, vp, ci, ci, vp, vp, ci, vp]
         so.vmpc_cu_fold_resident.argtypes = []
-        so.vmpc_cu_comb_norm.argtypes = [vp, vp, ci, ci, vp, vp]
+        so.vmpc_cu_comb_norm.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp]
+        so.vmpc_cu_comb_resident.argtypes = []
         so.vmpc_cu_bn_msm_accum.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
                                             vp]
         so.vmpc_cu_bn_msm_tail.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
@@ -106,7 +107,8 @@ def lib():
                    so.vmpc_cu_probe_chain, so.vmpc_cu_probe_raw,
                    so.vmpc_cu_probe_vpu_resident,
                    so.vmpc_cu_probe_carrychain_resident,
-                   so.vmpc_cu_fold_resident, so.vmpc_cu_bn_comb_resident,
+                   so.vmpc_cu_fold_resident, so.vmpc_cu_comb_resident,
+                   so.vmpc_cu_bn_comb_resident,
                    so.vmpc_cu_bn2_bexp_resident,
                    so.vmpc_cu_bn2_table_resident):
             fn.restype = ci

@@ -61,6 +61,15 @@ def join_rows_relaxed(coords) -> torch.Tensor:
 
 
 IDENTITY_ROW = (0,) * 4 + (1, 0, 0, 0) + (1, 0, 0, 0) + (0,) * 4
+AFF_ROW = 12  # an affine precomputed-form row: y+x, y-x, 2dxy
+
+
+def split_aff_rows(rows: torch.Tensor):
+    """``[..., 12]`` affine precomputed-form rows (y+x, y-x, 2dxy) -> the
+    precomputed form (Y+X, Y-X, 2dT, 2Z) with Z = 1, as coordinates."""
+    two = fe.const_rows(2, rows.shape[:-1], rows.device)
+    return tuple(fe.from_u64(rows[..., 4 * j : 4 * j + 4])
+                 for j in range(3)) + (two,)
 
 
 # ---------------------------------------------------------------------------
@@ -165,7 +174,7 @@ def normalize_rows(p) -> torch.Tensor:
 
 def pre_rows(points) -> np.ndarray:
     """Host precomputed-form rows (Y+X, Y-X, 2dT, 2Z) of EdwardsPoints, in
-    the point-row layout (the comb table of ``msm_cuda.comb_table``)."""
+    the point-row layout (K15's table, ``msm_cuda.bexp_table``)."""
     from ..groups.edwards import P
 
     vals = []
@@ -174,6 +183,20 @@ def pre_rows(points) -> np.ndarray:
                  2 * pt.z % P]
     raw = b"".join(v.to_bytes(32, "little") for v in vals)
     return np.frombuffer(raw, dtype=np.uint64).reshape(len(points), 16).copy()
+
+
+def affine_pre_rows(points) -> np.ndarray:
+    """Host affine precomputed-form rows (y+x, y-x, 2dxy) of normalized
+    EdwardsPoints (z = 1): ``[n, 12]`` u64 (the comb table of
+    ``msm_cuda.comb_table``)."""
+    vals = []
+    for pt in points:
+        if pt.z % P != 1:
+            raise ValueError("affine rows need normalized points")
+        vals += [(pt.y + pt.x) % P, (pt.y - pt.x) % P, TWO_D * pt.x * pt.y % P]
+    raw = b"".join(v.to_bytes(32, "little") for v in vals)
+    return np.frombuffer(raw, dtype=np.uint64).reshape(len(points),
+                                                       AFF_ROW).copy()
 
 
 # ---------------------------------------------------------------------------

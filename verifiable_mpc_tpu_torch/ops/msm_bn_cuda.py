@@ -42,10 +42,11 @@ from . import msm_cuda as mc
 TABLE = mc.TABLE  # fold table 0..15
 TABLE_S = mc.TABLE_S  # signed-digit table 0..8
 ROW = cbn.ROW
-# K6 (csrc/bn_msm_tail.cu): the threads of a reduce block and the window
-# groups of the combination (TAIL_GROUPS there)
-TAIL_REDUCE_THREADS = 128
+# K6 (csrc/bn_msm_tail.cu): the window groups of the combination
+# (TAIL_GROUPS there), and the adds a thread of its reduce makes before
+# its tree (msm_cuda.tail_split)
 TAIL_GROUPS = 8
+TAIL_ADDS = 8
 
 
 # ---------------------------------------------------------------------------
@@ -87,18 +88,11 @@ def msm_accumulate(points: torch.Tensor, digits: torch.Tensor,
     return acc
 
 
-def tail_split(S: int) -> int:
-    """K6's chunk count R a window: about eight adds a thread of a reduce
-    block before its tree (R = 4 at S = 4096; 2-32 measured on the H100,
-    PERF.md)."""
-    return max(1, -(-S // (8 * TAIL_REDUCE_THREADS)))
-
-
 def msm_tail(acc: torch.Tensor) -> torch.Tensor:
     """K6: accumulators [B, nw, S, 12] -> [B, 12] normalized rows of
     sum_w 16^(nw-1-w) sum_s acc[w, s]: a reduce launch into R chunks a
-    window (:func:`tail_split`), then one block a batch combines them.
-    CPU: :func:`msm_tail_plain`."""
+    window (``msm_cuda.tail_split``), then one block a batch combines
+    them.  CPU: :func:`msm_tail_plain`."""
     mc._check_rows(acc, "acc", 4, ROW)
     B, nw, S, _ = acc.shape
     if not 0 < nw <= mc.NWINDOWS or not S:
@@ -107,7 +101,7 @@ def msm_tail(acc: torch.Tensor) -> torch.Tensor:
         return msm_tail_plain(acc)
     from . import _cuda_build as cb
 
-    R = tail_split(S)
+    R = mc.tail_split(S, TAIL_ADDS)
     part = torch.empty((B, nw, R, ROW), dtype=torch.int64, device=acc.device)
     out = torch.empty((B, ROW), dtype=torch.int64, device=acc.device)
     cb.check(cb.lib().vmpc_cu_bn_msm_tail(
@@ -240,12 +234,12 @@ def tail_spans(nw: int) -> list:
 
 def msm_tail_plain(acc: torch.Tensor, R: int = None) -> torch.Tensor:
     """Plain version of K6: each window's S slices summed in R chunks
-    (:func:`tail_split`), the chunks' partials summed; a Horner over each
-    window group (:func:`tail_spans`); the groups' sums shifted and added
-    (16^(nw - b) H for the group ending at b); normalize."""
+    (``msm_cuda.tail_split``), the chunks' partials summed; a Horner over
+    each window group (:func:`tail_spans`); the groups' sums shifted and
+    added (16^(nw - b) H for the group ending at b); normalize."""
     B, nw, S, _ = acc.shape
     dev = acc.device
-    R = R or tail_split(S)
+    R = R or mc.tail_split(S, TAIL_ADDS)
     chunk = -(-S // R)
     p = cbn.split_rows(acc)
     if R * chunk > S:

@@ -9,9 +9,9 @@ signed recoding (``_scalar_digits_signed``, ``_digits_signed_from_u64x4``),
 
 =====  =====================  ==========================================
 K1     msm_accumulate         4-bit signed-window accumulation (B1)
-K2     msm_tail               window reduction + Horner + normalize (B2)
+K2     msm_tail               window reduction + split Horner + normalize (B2)
 K3     fold                   g_l^c * g_r + batch normalize (B3)
-K4     comb                   fixed-base comb + normalize (B5)
+K4     comb                   fixed-base comb + batch normalize (B5)
 K15    bexp                   shared-base signed-window ladder (B4)
 =====  =====================  ==========================================
 
@@ -54,6 +54,15 @@ FOLD_SM_THREADS = 256
 # walks (32: 3-5 % less time than 16 for K1 + K2 and K5 + K6 at 2^17
 # points on an H100, PERF.md; K9 takes its own, msm_bn2_cuda)
 ACCUM_POINTS_PER_THREAD = 32
+# the threads of a reduce block of K2 and K6 (REDUCE_THREADS in
+# csrc/msm_tail.cu, BN_REDUCE_THREADS in csrc/bn_msm_tail.cu), and the adds
+# a thread of K2's makes before its tree (K6's: 8; measured on an H100,
+# chip_variants.py's k2_r*, PERF.md)
+TAIL_REDUCE_THREADS = 128
+TAIL_ADDS = 16
+# K4's threads an SM: fewer than its registers allow (640), which ran
+# faster on an H100 (chip_variants.py's k4_wave*, PERF.md)
+COMB_SM_THREADS = 384
 
 # kernel launches, counted by the wrappers where they launch (never by the
 # plain versions); the bn_* ones by ops/msm_bn_cuda.py, the bn2_* ones by
@@ -336,19 +345,32 @@ def msm_accumulate(points: torch.Tensor, digits: torch.Tensor,
     return acc
 
 
+def tail_split(S: int, adds: int = TAIL_ADDS) -> int:
+    """The chunk count R a window of K2's (and, with ``adds`` = 8, K6's)
+    reduce launch: about ``adds`` adds a thread of a reduce block before
+    its tree (K2: R = 2 at S = 4096, K6: 4; measured on the H100,
+    PERF.md)."""
+    return max(1, -(-S // (adds * TAIL_REDUCE_THREADS)))
+
+
 def msm_tail(acc: torch.Tensor) -> torch.Tensor:
     """K2: accumulators [B, nw, S, 16] -> [B, 16] canonical rows of
-    sum_w 16^(nw-1-w) sum_s acc[w, s].  CPU: :func:`msm_tail_plain`."""
+    sum_w 16^(nw-1-w) sum_s acc[w, s]: a reduce launch into R chunks a
+    window (:func:`tail_split`), then one block a batch combines them.
+    CPU: :func:`msm_tail_plain`."""
     _check_rows(acc, "acc", 4)
     B, nw, S, _ = acc.shape
+    if not 0 < nw <= NWINDOWS or not S:
+        raise ValueError(f"window count {nw} / slice count {S}")
     if _same_device(acc).type == "cpu":
         return msm_tail_plain(acc)
     from . import _cuda_build as cb
 
-    wsum = torch.empty((B, nw, 16), dtype=torch.int64, device=acc.device)
+    R = tail_split(S)
+    part = torch.empty((B, nw, R, 16), dtype=torch.int64, device=acc.device)
     out = torch.empty((B, 16), dtype=torch.int64, device=acc.device)
     cb.check(cb.lib().vmpc_cu_msm_tail(
-        acc.data_ptr(), wsum.data_ptr(), out.data_ptr(), B, nw, S,
+        acc.data_ptr(), part.data_ptr(), out.data_ptr(), B, nw, S, R,
         _stream(acc)), "msm_tail")
     LAUNCHES["msm_tail"] += 1
     return out
@@ -404,10 +426,12 @@ def fold_threads(n: int, dev: torch.device) -> int:
 
 
 def comb_rows(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
-    """Fixed-base comb: table [nw*9, 16] precomputed-form rows (row w*9+m
-    = m * 16^(nw-1-w) * base), digits [nw/2, n] packed -> [n, 16]
-    canonical rows.  CUDA: K4; CPU: :func:`comb_plain`."""
-    _check_rows(table, "table", 2)
+    """Fixed-base comb: table [nw*9, 12] affine precomputed-form rows (row
+    w*9+m = m * 16^(nw-1-w) * base, :func:`comb_table`), digits [nw/2, n]
+    packed -> [n, 16] canonical rows.  CUDA: K4, G = :func:`comb_threads`
+    threads, thread g summing the exponents g, g + G, ... and normalizing
+    them with one inversion; CPU: :func:`comb_plain`."""
+    _check_rows(table, "table", 2, ced.AFF_ROW)
     nw = table.shape[0] // TABLE_S
     if nw * TABLE_S != table.shape[0] or nw % 2 or not 0 < nw <= NWINDOWS:
         raise ValueError(f"comb table of {table.shape[0]} rows")
@@ -416,13 +440,26 @@ def comb_rows(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
         return comb_plain(table, digits)
     from . import _cuda_build as cb
 
-    lib = cb.lib()
     n = digits.shape[1]
     out = torch.empty((n, 16), dtype=torch.int64, device=table.device)
-    cb.check(lib.vmpc_cu_comb_norm(table.data_ptr(), digits.data_ptr(), n, nw,
-                                   out.data_ptr(), _stream(table)), "comb")
+    if not n:
+        return out
+    pre = torch.empty((n, 4), dtype=torch.int64, device=table.device)
+    cb.check(cb.lib().vmpc_cu_comb_norm(
+        table.data_ptr(), digits.data_ptr(), n, nw,
+        comb_threads(n, table.device), pre.data_ptr(), out.data_ptr(),
+        _stream(table)), "comb")
     LAUNCHES["comb"] += 1
     return out
+
+
+def comb_threads(n: int, dev: torch.device) -> int:
+    """K4's thread count G for n exponents: one wave (:func:`one_wave`) of
+    at most COMB_SM_THREADS an SM."""
+    from . import _cuda_build as cb
+
+    return one_wave(n, min(cb.lib().vmpc_cu_comb_resident(),
+                           COMB_SM_THREADS), dev)
 
 
 def bexp_rows(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
@@ -614,8 +651,9 @@ def fold_plain(gl: torch.Tensor, gr: torch.Tensor,
 
 
 def comb_plain(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
-    """Plain version of K4: select T[w][d_w(e_i)] for every window, negate
-    for d < 0, sum over the windows, normalize (in blocks of exponents)."""
+    """Plain version of K4: select T[w][d_w(e_i)] (affine rows) for every
+    window, negate for d < 0, sum over the windows, normalize (in blocks
+    of exponents)."""
     nw = 2 * digits.shape[0]
     n = digits.shape[1]
     d = unpack_digits(digits)  # [nw, n]
@@ -625,8 +663,9 @@ def comb_plain(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
     for i0 in range(0, n, step):
         db = d[:, i0 : i0 + step]
         m = db.shape[1]
-        rows = table[(base + db.abs()).reshape(-1)].reshape(nw, m, 16)
-        sel = ced.neg_where_pre(db < 0, ced.split_rows(rows))
+        rows = table[(base + db.abs()).reshape(-1)].reshape(nw, m,
+                                                             ced.AFF_ROW)
+        sel = ced.neg_where_pre(db < 0, ced.split_aff_rows(rows))
         acc = ced.add_pre(ced.identity((nw, m), table.device), sel)
         out.append(ced.normalize_rows(_tree_sum(acc, 0)))
     return torch.cat(out, dim=0)
@@ -725,7 +764,8 @@ _COMB_TABLES = {}  # (repr of the normalized base, nw, device) -> table
 
 def _comb_table_build(base, nw: int) -> np.ndarray:
     """Rows MSB-first, row w holding d * (16^(nw-1-w) * base) for d = 0..8,
-    in precomputed form (~nw * 8 host group operations, cached per base)."""
+    in affine precomputed form (~nw * 8 host group operations and one
+    batch normalization, cached per base)."""
     ident = EdwardsPoint.identity
     rows = []
     base_w = base
@@ -737,17 +777,20 @@ def _comb_table_build(base, nw: int) -> np.ndarray:
         eight = row[TABLE_S - 1]
         base_w = eight * eight  # 16 * base_w
     rows.reverse()
-    return ced.pre_rows([pt for row in rows for pt in row])
+    return ced.affine_pre_rows(EdwardsPoint.batch_normalize(
+        [pt for row in rows for pt in row]))
 
 
 def comb_table(base, nw: int, device=None) -> torch.Tensor:
+    """[nw*9, 12] affine precomputed-form rows of the comb of ``base`` for
+    ``nw`` windows on ``device`` (:func:`_comb_table_build`), cached by the
+    normalized base, nw and device."""
     device = current_device(device)
     key = (repr(base.normalize()), nw, str(device))
     hit = _COMB_TABLES.get(key)
     if hit is None:
-        hit = _COMB_TABLES[key] = ced.from_reference_rows(
-            _comb_table_build(base, nw), device
-        )
+        hit = _COMB_TABLES[key] = torch.from_numpy(
+            _comb_table_build(base, nw).view(np.int64)).to(device)
     return hit
 
 
