@@ -2,7 +2,8 @@
 """Where the time of one GPU prove or key generation goes (the
 PyTorch/CUDA port, one card).
 
-    python3 chip_profile.py [--snark | --keygen] [--log2-muls 16] [--out DIR]
+    python3 chip_profile.py [--snark | --keygen | --bucket] [--log2-muls 16]
+                            [--out DIR]
 
 Builds the chain circuit of ``chip_smoke.py``, sets up the generators on
 the card and proves twice with no profiler (the first prove of a process
@@ -12,7 +13,11 @@ keys from generate_keys_fast, compute_proof_fast: seven G1 MSMs and the
 twist MSM on the card); with ``--keygen`` the stage is Pinocchio's key
 generation itself (generate_keys_fast: eight G1 combs and the twist
 batch-exp on the card; its first run in a process also builds the comb
-tables); without either, the AC20 compressed-pivot prove over Ed25519.
+tables); without either, the AC20 compressed-pivot prove over Ed25519,
+and with ``--bucket`` that prove with the bucket MSM registered
+(``msm_bucket_cuda.register()``: K13 + K14 serve protocol 5's commitment
+A, 2^18 points at 2^16 multiplications, and the check asserts that they
+ran).
 Then it runs the stage twice more; every proof is verified, and every key
 generation checked for its kernels' launches, outside the timed and
 profiled parts:
@@ -27,7 +32,8 @@ profiled parts:
 
 With ``--out`` the full host table goes to ``DIR/profile_host.txt``
 (``DIR/profile_host_snark.txt`` with ``--snark``,
-``DIR/profile_host_keygen.txt`` with ``--keygen``).  The last line is one
+``DIR/profile_host_keygen.txt`` with ``--keygen``,
+``DIR/profile_host_bucket.txt`` with ``--bucket``).  The last line is one
 JSON object with the numbers above.  Imports neither jax
 nor the JAX package, and fails without a card.
 """
@@ -57,23 +63,32 @@ def _timed(torch, prove):
     return proof, time.perf_counter() - t0
 
 
-def ac20_path(vm, log2_muls: int):
+def ac20_path(vm, mc, log2_muls: int, bucket: bool = False):
     """(prove, check) of the Ed25519 flagship: the compressed-pivot prove
-    and its verify, which also asserts that the resident engine ran."""
+    and its verify, which also asserts that the resident engine ran (and
+    with ``bucket`` that K13 and K14 did: the bucket MSM is registered
+    after the generators are made)."""
     import verifiable_mpc_tpu_torch.ac20.circuit_sat_cb as cs
     from verifiable_mpc_tpu_torch.ac20 import pivot_gpu
+    from verifiable_mpc_tpu_torch.ops import msm_bucket_cuda as bk
 
     pc = cs.PivotChoice.compressed
     group, gf, circuit, x, g_length = smoke.padded_circuit(vm, log2_muls)
     gens = cs.create_generators(g_length, pc, group)
+    if bucket:
+        bk.register()
     runs = [pivot_gpu.ENGINE_RUNS]
+    seen = {}
 
     def prove():
         runs[0] = pivot_gpu.ENGINE_RUNS
+        seen.update((k, mc.LAUNCHES[k]) for k in smoke.BUCKET_KERNELS)
         return cs.circuit_sat_prover(gens, circuit, x, gf, pc)
 
     def check(proof):
         assert pivot_gpu.ENGINE_RUNS > runs[0], "the GPU engine never ran"
+        for k in smoke.BUCKET_KERNELS if bucket else ():
+            assert mc.LAUNCHES[k] > seen[k], f"{k} never ran"
         ver = cs.circuit_sat_verifier(proof, gens, circuit, gf, pc)
         assert smoke.verified(ver), f"proof did not verify: {ver}"
 
@@ -145,6 +160,9 @@ def main(argv) -> int:
                        help="profile the Pinocchio prove over BN256")
     stage.add_argument("--keygen", action="store_true",
                        help="profile Pinocchio's key generation over BN256")
+    stage.add_argument("--bucket", action="store_true",
+                       help="profile the Ed25519 prove with the bucket MSM "
+                       "registered")
     ap.add_argument("--log2-muls", type=int, default=None)
     ap.add_argument("--out", help="directory for the full host table")
     args = ap.parse_args(argv)
@@ -168,8 +186,8 @@ def main(argv) -> int:
         path = "pinocchio-keygen" if args.keygen else "pinocchio"
     else:
         log2 = args.log2_muls or smoke.FLAGSHIP_LOG2_MULS
-        prove, check = ac20_path(vm, log2)
-        path = "ac20"
+        prove, check = ac20_path(vm, mc, log2, args.bucket)
+        path = "ac20-bucket" if args.bucket else "ac20"
     proof, warm = _timed(torch, prove)
     check(proof)
     proof, steady = _timed(torch, prove)
@@ -208,6 +226,7 @@ def main(argv) -> int:
         pstats.Stats(host, stream=full).sort_stats("cumulative").print_stats()
         name = ("profile_host_keygen.txt" if args.keygen
                 else "profile_host_snark.txt" if args.snark
+                else "profile_host_bucket.txt" if args.bucket
                 else "profile_host.txt")
         with open(os.path.join(args.out, name), "w") as f:
             f.write(full.getvalue())

@@ -10,8 +10,8 @@ Phases (each one fatal; any failure exits non-zero and prints no result):
 1. the card's name and power limit (nvidia-smi);
 2. build the kernels (nvcc, ptxas's registers per thread of every kernel,
    and one line with the registers, stack, spills and shared memory of the
-   launches of K1, K2, K3, K4, K5, K6, K8, K9, K10 and K11) and the C++
-   host tier (g++), with their seconds;
+   launches of K1, K2, K3, K4, K5, K6, K8, K9, K10, K11, K13 and K14) and
+   the C++ host tier (g++), with their seconds;
 3. hold every kernel against its plain PyTorch version on the same inputs
    on the card: K1 + K2 (MSM), K3 (fold), K4 (comb) over Ed25519 and
    K5 + K6 (MSM), K7 (fold), K8 (comb) over BN256 G1 at n in {1, 300,
@@ -51,7 +51,8 @@ Phases (each one fatal; any failure exits non-zero and prints no result):
    batch-exp's first call, which builds the comb table); the bucket MSM
    against K1 + K2 and the C++ tier at 2^12 ... 2^18 points, encode to
    decode and with the points resident, its host conversion, card-side
-   recoding and layout and kernels timed apart;
+   recoding and compact layout and kernels timed apart, and the peak
+   device memory of one bucket MSM at 2^18;
 5. the engine cut-over: one protocol-4 round on the card and on the C++
    tier per half size;
 6. the Ed25519 flagship: enable_gpu(), a 2^16-multiplication chain
@@ -100,7 +101,9 @@ Phases (each one fatal; any failure exits non-zero and prints no result):
    beside the bound model's;
 10. each kernel's bound again by the field products its work needs at the
    product rate P2 measured in phase 9 at full occupancy
-   (``bound_product_ms``, beside the multiply model's ``bound_ms``);
+   (``bound_product_ms``, beside the multiply model's ``bound_ms``), and
+   K14's latency floor, its chain's dependent products at P3's one-lane
+   time (``latency_floor_ms``);
 11. the ``kernels`` JSON line (twenty kernels), then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -372,6 +375,13 @@ def product_bounds(stats: dict, rates: dict):
             f" the multiply model's bound {st['bound_ms']:.4f} ms, "
             f"{st['ms'] / st['bound_product_ms']:.1f} x the measured product"
             f" rate's {st['bound_product_ms']:.4f} ms")
+        if "chain_products" in st:
+            st["latency_floor_ms"] = (st["chain_products"]
+                                      * rates["dependent_ms"])
+            log(f"   {name}: latency floor {st['latency_floor_ms']:.4f} ms "
+                f"({st['chain_products']} dependent products at "
+                f"{rates['dependent_ms'] * 1e6:.1f} ns, P3 on one lane), "
+                f"{st['ms'] / st['latency_floor_ms']:.2f} x")
 
 
 def ptxas_usage(text: str) -> dict:
@@ -398,8 +408,8 @@ def ptxas_usage(text: str) -> dict:
     return {k: tuple(v) for k, v in out.items() if len(v) == 5}
 
 
-# the launches of K1, K2, K3, K4, K5, K6, K8, K9, K10 and K11 (each
-# kernel's launches in order)
+# the launches of K1, K2, K3, K4, K5, K6, K8, K9, K10, K11, K13 and K14
+# (each kernel's launches in order)
 USAGE_KERNELS = (("K1", ("msm_table_kernel", "msm_accum_kernel")),
                  ("K2", ("msm_reduce_kernel", "msm_combine_kernel")),
                  ("K3", ("fold_norm_kernel",)),
@@ -410,12 +420,15 @@ USAGE_KERNELS = (("K1", ("msm_table_kernel", "msm_accum_kernel")),
                  ("K9", ("bn2_table_kernel", "bn2_table_norm_kernel",
                          "bn2_msm_accum_kernel")),
                  ("K10", ("bn2_msm_reduce_kernel", "bn2_msm_combine_kernel")),
-                 ("K11", ("bn2_encode_affine_kernel", "bn2_bexp_kernel")))
+                 ("K11", ("bn2_encode_affine_kernel", "bn2_bexp_kernel")),
+                 ("K13", ("bucket_pre_kernel", "bucket_accum_kernel",
+                          "bucket_combine_kernel")),
+                 ("K14", ("bucket_window_kernel", "bucket_tail_kernel")))
 
 
 def log_accum_usage(usage: dict):
     """The ptxas line of the launches of K1, K2, K3, K4, K5, K6, K8, K9,
-    K10 and K11."""
+    K10, K11, K13 and K14."""
     parts = []
     for label, keys in USAGE_KERNELS:
         for key in keys:
@@ -977,6 +990,10 @@ def flagship(torch, vm, mc, built, bk=None):
     if bk is not None:
         missing += [k for k in BUCKET_KERNELS if per_stage["prove"][k] == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
+    if bk is not None:  # protocol 5's commitment A moves to K13 + K14
+        got = tuple(per_stage["prove"][k] for k in (
+            "msm_accumulate", "msm_tail", *BUCKET_KERNELS))
+        assert got == (9, 9, 1, 1), f"prove's K1, K2, K13, K14: {got}"
     return launches
 
 
@@ -1078,11 +1095,11 @@ def check_small_new(torch, native, mc, bk, ced, add, lm, rng):
         pts = ed_points(native, n, rng, identity_at=(2, 200))
         sc = bucket_scalars(ELL, n, rng)
         rows = ced.encode_points(pts, dev)
-        perm, sgn = bk.layout_for(sc, 8, bk.LANES, dev)
-        buckets = bk.bucket_accumulate(rows, perm, sgn)
+        entries, offsets, _count = bk.layout_for(sc, 8, bk.LANES, dev)
+        buckets = bk.bucket_accumulate(rows, entries, offsets)
         got = bk.bucket_reduce(buckets)
         errs = [max_abs_err(torch, norm(buckets), norm(
-                    bk.bucket_accumulate_plain(rows, perm, sgn))),
+                    bk.bucket_accumulate_plain(rows, entries, offsets))),
                 max_abs_err(torch, got, bk.bucket_reduce_plain(buckets)),
                 host_err(torch, got, ed_host_rows(
                     native, [native.ed_msm(pts, sc)]))]
@@ -1119,6 +1136,26 @@ def check_small_new(torch, native, mc, bk, ced, add, lm, rng):
     assert bk.msm(pts[:2], [0, ELL]) == EdwardsPoint.identity
 
 
+def log_compact_layout(offsets, count: int, nw: int, lanes: int):
+    """The compact layout's shape as K13 meets it: entries, columns (empty
+    ones), the deepest column, the accumulation threads (C entries each)
+    and the partials the combination sums."""
+    from verifiable_mpc_tpu_torch.ops import msm_bucket_cuda as bk
+
+    off = offsets.cpu().numpy().astype(np.int64)
+    depth = np.diff(off)
+    C = bk.ACCUM_ENTRIES
+    threads = -(-count // C)
+    t0, t1 = off[:-1] // C, np.maximum(off[1:] - 1, 0) // C
+    crossing = (depth > 0) & (t1 > t0)
+    log(f"   compact layout: {count} entries, {nw * lanes} columns "
+        f"({int((depth == 0).sum())} empty), deepest {int(depth.max())}, "
+        f"{threads} threads of {C} entries, {int(crossing.sum())} crossing "
+        f"columns with {int((t1 - t0 + 1)[crossing].sum())} partials "
+        f"(most {int((t1 - t0 + 1)[crossing].max(initial=0))} a column); "
+        f"{count * 4 + off.size * 4} bytes")
+
+
 def check_main_shapes_new(torch, native, mc, bk, ced, add, lm, rng,
                           n_msm: int, n_bexp: int, n_add: int):
     """K13 and K14 at protocol 5's commitment (n_msm points), K15 at the
@@ -1135,11 +1172,12 @@ def check_main_shapes_new(torch, native, mc, bk, ced, add, lm, rng,
     u64 = torch.from_numpy(
         mc.scalars_to_u64x4(sc, ELL).view(np.int64).copy()).to(dev)
     digits = bk.trim_windows(bk.digits_signed8(u64))
-    perm, sgn, D = bk.bucket_layout(digits, 8, bk.LANES)
-    nw, _D, lanes = perm.shape
-    buckets = bk.bucket_accumulate(rows, perm, sgn)
+    lanes = bk.LANES
+    entries, offsets, count = bk.compact_layout(digits, lanes)
+    nw = digits.shape[0]
+    buckets = bk.bucket_accumulate(rows, entries, offsets)
     plain, k13_plain = cuda_once(
-        torch, lambda: bk.bucket_accumulate_plain(rows, perm, sgn))
+        torch, lambda: bk.bucket_accumulate_plain(rows, entries, offsets))
     norm = lambda a: ced.normalize_rows(  # noqa: E731
         ced.split_rows(a.reshape(-1, 16)))
     k13_err = max_abs_err(torch, norm(buckets), norm(plain))
@@ -1149,14 +1187,19 @@ def check_main_shapes_new(torch, native, mc, bk, ced, add, lm, rng,
         torch, lambda: bk.bucket_reduce_plain(buckets))
     k14_err = max_abs_err(torch, out, out_plain)
     assert k14_err == 0.0, "K14 differs from the plain version"
+    host = ed_host_rows(native, [native.ed_msm(pts, sc)])
+    assert host_err(torch, out, host) == 0.0, "K13 + K14 differ from c++"
     nz = int(torch.count_nonzero(digits))
-    log(f"   bucket layout at n={n_msm}: nw={nw} D={D} (deepest column; "
-        f"{nz} nonzero digits, {perm.numel()} slots)")
+    assert count == nz, f"{count} entries for {nz} nonzero digits"
+    log_compact_layout(offsets, count, nw, lanes)
     stats["bucket_accumulate"] = dict(
         err=k13_err, ms=cuda_ms(torch, lambda: bk.bucket_accumulate(
-            rows, perm, sgn)),
-        plain_ms=k13_plain, shape=f"n={n_msm} nw={nw} D={D} lanes={lanes}",
-        bytes=n_msm * 128 + 2 * perm.numel() * 4 + nw * lanes * 128,
+            rows, entries, offsets)),
+        plain_ms=k13_plain, shape=f"n={n_msm} nw={nw} lanes={lanes} "
+        f"entries={count} C={bk.ACCUM_ENTRIES}",
+        # the points, the entry list and offsets read once, the sums written
+        bytes=(n_msm * 128 + count * 4 + offsets.numel() * 4
+               + nw * lanes * 128),
         muls=n_msm * TO_PRE + nz * ADD_PRE)
     # per window: the suffix sums and their sum, 2 (lanes - 1) adds; the
     # Horner ladder over the windows; one normalization
@@ -1165,7 +1208,9 @@ def check_main_shapes_new(torch, native, mc, bk, ced, add, lm, rng,
         plain_ms=k14_plain, shape=f"nw={nw} lanes={lanes}",
         bytes=nw * lanes * 128 + 128,
         muls=(nw * 2 * (lanes - 1) * ADD + (nw - 1) * 8 * DBL
-              + (nw - 1) * ADD + NORM_EACH + INV))
+              + (nw - 1) * ADD + NORM_EACH + INV),
+        # its chain: 8 (nw - 1) doublings of two dependent products each
+        chain_products=2 * 8 * (nw - 1))
 
     exps = [rng.randrange(1, ELL) for _ in range(n_bexp)]
     pk, nwb = mc.packed_digits(native._ints_to_u64x4(exps, ELL))
@@ -1249,8 +1294,7 @@ def bucket_sweep(torch, native, mc, bk):
             arr = mc.scalars_to_u64x4(sc, ELL)
             u1 = time.perf_counter()
             u64 = torch.from_numpy(arr.view(np.int64).copy()).to(DEV)
-            lay = bk.bucket_layout(bk.trim_windows(bk.digits_signed8(u64)), 8,
-                                   bk.LANES)
+            lay = bk.compact_layout(bk.trim_windows(bk.digits_signed8(u64)))
             torch.cuda.synchronize()
             u2 = time.perf_counter()
             bk.bucket_reduce(bk.bucket_accumulate(dpts, lay[0], lay[1]))
@@ -1271,6 +1315,18 @@ def bucket_sweep(torch, native, mc, bk):
             f"conversion {best['convert']:.3f} ms, upload + device recoding "
             f"+ layout {best['layout']:.3f} ms, K13+K14 "
             f"{best['kernels']:.3f} ms")
+    # peak device memory of one bucket MSM at the largest size, the points
+    # resident (their rows counted before the reset)
+    sc = [rng.randrange(ELL) for _ in range(n)]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bk.msm(p, sc)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"   peak device memory of one bucket MSM at n=2^{lg}: "
+        f"{peak - before} bytes above the {before} allocated before "
+        f"(max_memory_allocated {peak})")
 
 
 def parity_bucket(torch, vm, mc, bk):
@@ -2335,6 +2391,10 @@ def probes(torch):
     rates = {key: max(r["rate"] for r in rows if r["probe"] == "P2"
                       and r["case"] == case and r["shape"] == "full")
              for key, case in (("ed", "mul25519"), ("bn", "fp_mul"))}
+    # a dependent fe_mul on one lane (P3's chain), in ms
+    rates["dependent_ms"] = min(r["ms"] / r["fmuls"] for r in rows
+                                if r["probe"] == "P3" and r["case"] == "chain"
+                                and r["shape"] == "one lane")
     return stats, launches, rates
 
 
@@ -2455,6 +2515,8 @@ def main() -> int:
                if name in PROBE_KERNELS else {}),
             **({"bound_product_ms": st["bound_product_ms"]}
                if "bound_product_ms" in st else {}),
+            **({"latency_floor_ms": st["latency_floor_ms"]}
+               if "latency_floor_ms" in st else {}),
         }
         for name, st in stats.items()
     ]

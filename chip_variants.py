@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Design variants of the kernels K2, K3, K4, K6, K8, K9, K10 and K11, timed
-on the card against the committed kernels on the same inputs.
+"""Design variants of the kernels K2, K3, K4, K6, K8, K9, K10, K11, K13 and
+K14, timed on the card against the committed kernels on the same inputs.
 
     python3 chip_variants.py [--log2 17] [--reps 3] [--only NAME ...]
                              [--parent DIR]
 
 A variant is a committed kernel source (``csrc/msm_tail.cu``,
 ``csrc/fold.cu``, ``csrc/comb.cu``, ``csrc/bn_msm_tail.cu``,
-``csrc/bn2_bexp.cu``, ``csrc/bn_comb.cu``, ``csrc/bn2_msm_accum.cu`` or
-``csrc/bn2_msm_tail.cu``) with the few text edits listed in ``VARIANTS``
+``csrc/bn2_bexp.cu``, ``csrc/bn_comb.cu``, ``csrc/bn2_msm_accum.cu``,
+``csrc/bn2_msm_tail.cu``, ``csrc/bucket_accum.cu`` or
+``csrc/bucket_reduce.cu``) with the few text edits listed in ``VARIANTS``
 (a function's body copied from its header and edited counts as one, and
 so does a header's text put in place of its ``#include`` with edits),
 built alone with nvcc into a library of its own (under the kernels' build
@@ -21,8 +22,11 @@ the default), K6's accumulators at B = 1, nw = 64, S = 4096 (the
 Pinocchio path's MSM tail), 2^log2 exponents for K8 and K11 (the
 Pinocchio path's, the G1 or the twist generator's comb table), 2^log2
 twist points for K9 (the Pinocchio prove's twist MSM) and its
-accumulators for K10.  The variants in ``SPLITS`` run the committed K2,
-K6 or K10 with another chunk count R a window; the ``WAVES`` variants
+accumulators for K10, 2^(log2+1) points and scalars for K13 (protocol 5's
+commitment at the default) and its bucket sums for K14.  The variants in
+``SPLITS`` run the committed K2, K6 or K10 with another chunk count R a
+window, the ``ENTRIES`` variants K13 with another count of entries a
+thread (its bucket sums compared normalized); the ``WAVES`` variants
 run the committed K9 with its
 normalization at another count of threads an SM; the ``POINTS`` variants
 run K9 with another count of points a thread, and K10 on its
@@ -35,9 +39,10 @@ best of ``--reps`` each).  The sources keep one design each; the
 alternatives that were measured against it live only here.  Prints the
 card line, ptxas's lines of the variants, one line per variant and, last,
 one JSON object with the times.  With ``--parent DIR`` it also times K2,
-K3, K4, K6, K9 and K10 of this checkout against those of the checkout at
-DIR (an earlier commit, unpacked there), each in a process of its own, in
-turns.
+K3, K4, K6, K9, K10, K13 and K14 of this checkout against those of the
+checkout at DIR (an earlier commit, unpacked there), each in a process of
+its own, in turns, and logs the peak device memory of the bucket MSM's
+layout and kernels at 2^18 points in each.
 Imports neither jax nor the JAX package, and fails without a card.
 """
 
@@ -831,8 +836,86 @@ K4_LAST_NO_T = (
          "ge_add_aff_last(acc, acc, q, d < 0, w < nw - 1);")]))
 
 
+# K13 with the signed add's operand picks (ge_add_pre_signed) in place of
+# the entry negated in place
+K13_SIGNED = inline_header("ed25519_kernels.cuh", [(
+    "    if (e < 0) ge_pre_neg(q);\n    ge_ext r;\n    ge_add_pre(r, acc, q);\n",
+    "    ge_ext r;\n    ge_add_pre_signed(r, acc, q, e < 0);\n")])
+# K13's combination with a block of 128 threads a column in place of a warp
+K13_COMBINE_BLOCK = """
+__global__ void __launch_bounds__(128)
+    bucket_combine_block_kernel(const uint64_t *part, const int32_t *offsets,
+                                uint64_t *out, int chunk) {
+  __shared__ uint64_t sh[128][16];
+  int c = blockIdx.x;
+  uint64_t *dst = out + (size_t)c * 16;
+  if (offsets[c] == offsets[c + 1]) {
+    if (threadIdx.x == 0) {
+      ge_ext z;
+      ge_identity(z);
+      ge_store(dst, z);
+    }
+    return;
+  }
+  int np = bucket_partials(offsets, c, chunk);
+  if (np == 0) return;
+  int m = np < 128 ? np : 128;
+  if (threadIdx.x < m)
+    bucket_combine_lane(part, offsets, c, chunk, np, threadIdx.x, m,
+                        sh[threadIdx.x]);
+  __syncthreads();
+  int p2 = 1;
+  while (p2 < m) p2 <<= 1;
+  for (int stride = p2 >> 1; stride > 0; stride >>= 1) {
+    if (threadIdx.x < stride && threadIdx.x + stride < m)
+      bucket_tree_step(sh[0], threadIdx.x, stride);
+    __syncthreads();
+  }
+  if (threadIdx.x < 16) dst[threadIdx.x] = sh[0][threadIdx.x];
+}
+
+// pts [n][16] rows"""
+# timing probes: K13's first launch alone, and its first two
+K13_PRE_ONLY = ("  int T = (int)", "  return 0;\n  int T = (int)")
+K13_ACCUM_ONLY = ("  bucket_combine_kernel<<<",
+                  "  return 0;\n  bucket_combine_kernel<<<")
+# K14's window launch alone (a timing probe)
+K14_WINDOW_ONLY = ("""  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  bucket_tail_kernel""", """  return (int)cudaGetLastError();
+  bucket_tail_kernel""")
+
 # name -> (kernel, source, [(committed text, variant text), ...])
 VARIANTS = {
+    # K13 with the signed add, a block of 128 threads a column's
+    # combination, 2 or 8 columns a block, and its timing probes
+    "k13_signed": ("bucket_accumulate", "bucket_accum.cu", [K13_SIGNED]),
+    "k13_combine_block": ("bucket_accumulate", "bucket_accum.cu", [
+        ("\n// pts [n][16] rows", K13_COMBINE_BLOCK),
+        ("  bucket_combine_kernel<<<blocks_for(cols, COMBINE_WARPS), "
+         "COMBINE_WARPS * 32,\n                          0, st>>>(part, "
+         "offsets, out, cols, chunk);",
+         "  bucket_combine_block_kernel<<<cols, 128, 0, st>>>(part, offsets, "
+         "out, chunk);")]),
+    "k13_combine_warps2": ("bucket_accumulate", "bucket_accum.cu", [
+        ("#define COMBINE_WARPS 4 ", "#define COMBINE_WARPS 2 ")]),
+    "k13_combine_warps8": ("bucket_accumulate", "bucket_accum.cu", [
+        ("#define COMBINE_WARPS 4 ", "#define COMBINE_WARPS 8 ")]),
+    "k13_pre_only": ("bucket_accumulate", "bucket_accum.cu", [K13_PRE_ONLY]),
+    "k13_accum_only": ("bucket_accumulate", "bucket_accum.cu",
+                       [K13_ACCUM_ONLY]),
+    # K14 with 1 or 2 lanes a group operation (both launches), 4 or 16
+    # window groups, and its window launch alone
+    "k14_lanes1": ("bucket_reduce", "bucket_reduce.cu", [
+        ("#define BUCKET_LANES 4 ", "#define BUCKET_LANES 1 ")]),
+    "k14_lanes2": ("bucket_reduce", "bucket_reduce.cu", [
+        ("#define BUCKET_LANES 4 ", "#define BUCKET_LANES 2 ")]),
+    "k14_groups4": ("bucket_reduce", "bucket_reduce.cu", [
+        ("#define REDUCE_GROUPS 8 ", "#define REDUCE_GROUPS 4 ")]),
+    "k14_groups16": ("bucket_reduce", "bucket_reduce.cu", [
+        ("#define REDUCE_GROUPS 8 ", "#define REDUCE_GROUPS 16 ")]),
+    "k14_window_only": ("bucket_reduce", "bucket_reduce.cu",
+                        [K14_WINDOW_ONLY]),
     # K2 with 2 or 8 lanes a group operation (both phases), 4 or 16 window
     # groups, column-sum products, the Fermat inversion, and the timing
     # probes: its reduce launch alone, no launch, no inversion
@@ -1002,7 +1085,12 @@ ONE_LIB = {"k9_pair_projective3": {
     "vmpc_cu_bn2_msm_accum": "vmpc_cu_bn2_msm_accum_alt"}}
 NO_ROWS = {"k9_table_only", "k9_projective_table_only", "k10_reduce_only",
            "k2_reduce_only", "k2_no_launch", "k2_no_inversion",
-           "k2_reduce_no_tree"}
+           "k2_reduce_no_tree", "k13_pre_only", "k13_accum_only",
+           "k14_window_only"}
+# K13 with another count of entries a thread (the wrapper's ACCUM_ENTRIES
+# is the committed count): name -> entries
+ENTRIES = {"k13_c16": 16, "k13_c32": 32, "k13_c48": 48, "k13_c96": 96,
+           "k13_c128": 128}
 # the committed K9 with its normalization, or K4, at one wave of another
 # count of threads an SM (the wrappers' TABLE_SM_THREADS and
 # COMB_SM_THREADS are the committed ones; K9's registers allow 384, K4's
@@ -1134,7 +1222,38 @@ def kernel_times(root: str, reps: int) -> dict:
         torch, lambda: mb2.msm_accumulate(P, dig, S), reps), rows)
     out["bn2_msm_tail"] = (smoke.cuda_ms(
         torch, lambda: mb2.msm_tail(acc2), reps), rows)
+    out.update(bucket_times(torch, native, ced, rng, reps))
     return out
+
+
+def bucket_times(torch, native, ced, rng, reps: int) -> dict:
+    """K13 and K14 at protocol 5's commitment (2^18 points and scalars,
+    layout_for's layout: the compact one, or an earlier commit's padded
+    perm and sgn), checksums of the normalized bucket sums and the result,
+    and (as ``bucket_peak_bytes``, checksum 0) the peak device memory of
+    the layout and both kernels above what was allocated before."""
+    from verifiable_mpc_tpu_torch.groups.edwards import ELL
+    from verifiable_mpc_tpu_torch.ops import msm_bucket_cuda as bk
+
+    n = 1 << 18
+    pts = ced.from_reference_rows(smoke.random_points(native, n, rng), "cuda")
+    sc = [rng.randrange(ELL) for _ in range(n)]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lay = bk.layout_for(sc, 8, bk.LANES, "cuda")[:2]
+    buckets = bk.bucket_accumulate(pts, *lay)
+    res = bk.bucket_reduce(buckets)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    sums = ced.normalize_rows(ced.split_rows(buckets.reshape(-1, 16)))
+    return {"bucket_accumulate": (smoke.cuda_ms(
+                torch, lambda: bk.bucket_accumulate(pts, *lay), reps),
+                int(sums.sum().item())),
+            "bucket_reduce": (smoke.cuda_ms(
+                torch, lambda: bk.bucket_reduce(buckets), reps),
+                int(res.sum().item())),
+            "bucket_peak_bytes": (float(peak), 0)}
 
 
 def k2_accumulators(torch, native, ced, rng, dev):
@@ -1157,9 +1276,10 @@ def k4_digits(torch, native, mc, rng, n: int, dev):
 
 
 # the sources whose ptxas lines --parent prints for both checkouts: K2,
-# K4, and K6 and K10, whose combination coop.cuh shares with K2
+# K4, K6 and K10, whose combination coop.cuh shares with K2 and K14, K13
+# and K14
 PTXAS_SOURCES = ("msm_tail.cu", "comb.cu", "bn_msm_tail.cu",
-                 "bn2_msm_tail.cu")
+                 "bn2_msm_tail.cu", "bucket_accum.cu", "bucket_reduce.cu")
 
 
 def ptxas_of(root: str) -> dict:
@@ -1182,10 +1302,9 @@ def ptxas_of(root: str) -> dict:
 
 
 def against(parent: str, reps: int) -> dict:
-    """K2, K3, K4, K6, K9 and K10 of this checkout and of the one at
-    ``parent``,
-    each in a process of its own, in turns (parent, this, this, parent);
-    their rows must agree."""
+    """K2, K3, K4, K6, K9, K10, K13 and K14 of this checkout and of the
+    one at ``parent``, each in a process of its own, in turns (parent,
+    this, this, parent); their rows must agree."""
     import subprocess
 
     out = {"parent": [], "this": []}
@@ -1205,10 +1324,11 @@ def against(parent: str, reps: int) -> dict:
                   f" {v[2]}/{v[3]} bytes spill stores/loads, {v[4]} bytes "
                   "shared", flush=True)
     for k in out["this"][0]:
+        unit = "bytes" if k.endswith("_bytes") else "ms"
         print(f"{k} against {parent}: parent " + " / ".join(
-            f"{t[k][0]:.3f}" for t in out["parent"]) + " ms, this "
+            f"{t[k][0]:.3f}" for t in out["parent"]) + f" {unit}, this "
             + " / ".join(f"{t[k][0]:.3f}" for t in out["this"])
-            + " ms (rows equal)", flush=True)
+            + f" {unit} (rows equal)", flush=True)
     return {w: [{k: v[0] for k, v in t.items()} for t in ts]
             for w, ts in out.items()}
 
@@ -1261,10 +1381,10 @@ def main(argv) -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--only", nargs="*",
                     default=(sorted(VARIANTS) + sorted(SPLITS) + sorted(POINTS)
-                             + sorted(WAVES)))
+                             + sorted(WAVES) + sorted(ENTRIES)))
     ap.add_argument("--parent", default=None,
-                    help="also time K2, K3, K4, K6, K9 and K10 against this "
-                    "checkout's")
+                    help="also time K2, K3, K4, K6, K9, K10, K13 and K14 "
+                    "against this checkout's")
     ap.add_argument("--kernel-times", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.kernel_times:
@@ -1287,6 +1407,7 @@ def main(argv) -> int:
     from verifiable_mpc_tpu_torch.ops import curve_ed as ced
     from verifiable_mpc_tpu_torch.ops import msm_bn2_cuda as mb2
     from verifiable_mpc_tpu_torch.ops import msm_bn_cuda as mb
+    from verifiable_mpc_tpu_torch.ops import msm_bucket_cuda as bk
     from verifiable_mpc_tpu_torch.ops import msm_cuda as mc
 
     print(smoke.card_line(), flush=True)
@@ -1301,6 +1422,8 @@ def main(argv) -> int:
             return VARIANTS[v][0]
         if v in WAVES:
             return WAVES[v][0]
+        if v in ENTRIES:
+            return "bucket_accumulate"
         return SPLITS[v][0] if v in SPLITS else "bn2_points"
 
     kernels = {kernel_of(v) for v in args.only}
@@ -1347,10 +1470,25 @@ def main(argv) -> int:
         # accumulators of another representation may hold the same points
         same["bn2_msm_accumulate"] = lambda a, b: torch.equal(*(
             cb2.normalize_rows(cb2.split_rows(x)) for x in (a, b)))
+    if kernels & {"bucket_accumulate", "bucket_reduce"}:
+        nb = 1 << (args.log2 + 1)
+        rows_b = ced.from_reference_rows(
+            smoke.random_points(native, nb, rng), dev)
+        ent, off, _count = bk.layout_for(
+            [rng.randrange(ELL) for _ in range(nb)], 8, bk.LANES, dev)
+        buckets = bk.bucket_accumulate(rows_b, ent, off)
+        calls["bucket_accumulate"] = lambda: bk.bucket_accumulate(
+            rows_b, ent, off)
+        calls["bucket_reduce"] = lambda: bk.bucket_reduce(buckets)
+        # bucket sums added in another order are other representatives
+        same["bucket_accumulate"] = lambda a, b: torch.equal(*(
+            ced.normalize_rows(ced.split_rows(x.reshape(-1, 16)))
+            for x in (a, b)))
     want = {k: fn() for k, fn in calls.items()}
     committed = {mc: mc.tail_split, mb2: mb2.tail_split,
                  "points": mb2.ACCUM_POINTS_PER_THREAD,
-                 "wave": mb2.TABLE_SM_THREADS, "comb": mc.COMB_SM_THREADS}
+                 "wave": mb2.TABLE_SM_THREADS, "comb": mc.COMB_SM_THREADS,
+                 "entries": bk.ACCUM_ENTRIES}
     out = {}
     for name in args.only:
         kernel = kernel_of(name)
@@ -1369,6 +1507,8 @@ def main(argv) -> int:
                                     else committed["wave"])
             mc.COMB_SM_THREADS = (wave if wave and kernel == "comb"
                                   else committed["comb"])
+            bk.ACCUM_ENTRIES = (ENTRIES[name] if which == name
+                                and name in ENTRIES else committed["entries"])
             if name in POINTS:
                 mb2.ACCUM_POINTS_PER_THREAD = (
                     POINTS[name] if which == name else committed["points"])
@@ -1388,6 +1528,7 @@ def main(argv) -> int:
         mb2.ACCUM_POINTS_PER_THREAD = committed["points"]
         mb2.TABLE_SM_THREADS = committed["wave"]
         mc.COMB_SM_THREADS = committed["comb"]
+        bk.ACCUM_ENTRIES = committed["entries"]
         out.setdefault(name, []).append(times)
         if name in POINTS:
             print(f"{name} (K9 alone / K10 alone / both, n={n}): committed "

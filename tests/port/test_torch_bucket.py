@@ -1,6 +1,7 @@
 """The port's bucket-method Ed25519 MSM (ops/msm_bucket_cuda.py) against
-the JAX package's ops/msm_bucket.py: the signed radix-256 recoding and
-the bucket layout element for element (lanes 128 and 4), the plain
+the JAX package's ops/msm_bucket.py: the signed radix-256 recoding, the
+padded bucket layout and the compact layout K13 reads (expanded to the
+padded form) element for element (lanes 128 and 4), the plain
 versions of K13 + K14 against the JAX package's C++ tier
 (native.ed_msm) and host multiexp, register()'s tiering, and a 2^6
 flagship prove with the bucket backend registered, whose normalized proof
@@ -147,6 +148,55 @@ def test_bucket_layout_rejects_digits_past_its_lanes(k):
     digits = ref_mb._scalar_digits_signed8([5], ELL)
     with pytest.raises(ValueError):
         k.bk.bucket_layout(digits, 8, 4)
+    with pytest.raises(ValueError):
+        k.bk.compact_layout(digits, 4)
+
+
+def _expand(entries, offsets, nw, lanes, dt):
+    """The compact layout as the padded [nw, D, lanes] perm and sgn of
+    _bucket_layout (D the deepest column, at least 1, rounded up to dt)."""
+    ent, off = entries.numpy(), offsets.numpy()
+    depth = max(1, int(np.diff(off).max(initial=0)))
+    D = -(-depth // dt) * dt
+    perm = np.full((nw, D, lanes), -1, np.int32)
+    sgn = np.zeros_like(perm)
+    for c in range(nw * lanes):
+        w, b = divmod(c, lanes)
+        col = ent[off[c]:off[c + 1]]
+        perm[w, :col.size, b] = col & 0x7FFFFFFF
+        sgn[w, :col.size, b] = col < 0
+    return perm, sgn
+
+
+@pytest.mark.parametrize("lanes,dt,name", [
+    (128, 8, "edge"), (128, 8, "random"), (128, 2, "near-half"),
+    (128, 2, "single-window"), (4, 2, "small-digits"),
+    (4, 8, "small-digits"), (4, 8, "single-window"),
+])
+def test_compact_layout_matches_reference(lanes, dt, name, k):
+    """The compact layout, expanded, equals _bucket_layout element for
+    element: digits 128 and -128 ("edge"), empty columns (every set but
+    "random" leaves some; lanes 4 many), a single-window MSM (scalars
+    below 4, trimmed to one window).  Its count is the nonzero digits',
+    its offsets monotone from 0 to the count."""
+    sc = ([0, 1, 2, 3, ELL - 1, ELL - 3, 2] if name == "single-window"
+          else RECODE_SETS[name])
+    digits = ref_mb._scalar_digits_signed8(sc, ELL)
+    if name == "single-window":
+        digits = np.asarray(k.bk.trim_windows(digits))
+        assert digits.shape[0] == 1
+    nw = digits.shape[0]
+    perm, sgn, _D = ref_mb._bucket_layout(digits, dt, lanes)
+    entries, offsets, count = k.bk.compact_layout(digits, lanes)
+    assert entries.dtype == k.torch.int32 and offsets.dtype == k.torch.int32
+    assert offsets.shape == (nw * lanes + 1,)
+    assert count == entries.numel() == int(np.count_nonzero(digits))
+    off = offsets.numpy()
+    assert off[0] == 0 and off[-1] == count and (np.diff(off) >= 0).all()
+    if name != "random":
+        assert (np.diff(off) == 0).any(), "no empty column covered"
+    got_perm, got_sgn = _expand(entries, offsets, nw, lanes, dt)
+    assert np.array_equal(got_perm, perm) and np.array_equal(got_sgn, sgn)
 
 
 @pytest.mark.parametrize("nw", [1, 3, 32])
@@ -196,19 +246,20 @@ def test_plain_kernels_hold_their_steps(k):
     pts = [_port(p) for p in _ref_points(9, 21)]
     sc = _small_digit_scalars(9, 22, nw=2)
     digits = k.bk.trim_windows(k.bk.scalar_digits_signed8(sc))
-    perm, sgn, _d = k.bk.bucket_layout(digits, 2, 4)
+    lanes = 4
+    entries, offsets, _count = k.bk.compact_layout(digits, lanes)
     rows = k.ced.encode_points(pts, "cpu")
-    buckets = k.ced.decode_rows(k.bk.bucket_accumulate(rows, perm, sgn)
-                                .reshape(-1, 16))
-    nw, D, lanes = perm.shape
+    buckets = k.ced.decode_rows(k.bk.bucket_accumulate(
+        rows, entries, offsets, lanes).reshape(-1, 16))
+    nw = digits.shape[0]
     expect = []
     for w in range(nw):
         for b in range(lanes):
             acc = EdwardsPoint.identity
-            for d in range(D):
-                i = int(perm[w, d, b])
-                if i >= 0:
-                    acc = acc * (pts[i] ** (ELL - 1 if sgn[w, d, b] else 1))
+            c = w * lanes + b
+            for e in entries[offsets[c]:offsets[c + 1]].tolist():
+                i = e & 0x7FFFFFFF
+                acc = acc * (pts[i] ** (ELL - 1 if e < 0 else 1))
             expect.append(acc)
     assert [_affine(p) for p in buckets] == [_affine(p) for p in expect]
     total = EdwardsPoint.identity
@@ -216,36 +267,43 @@ def test_plain_kernels_hold_their_steps(k):
         total = total ** 256
         for b in range(lanes):
             total = total * expect[w * lanes + b] ** (b + 1)
-    got = k.bk.bucket_reduce(k.bk.bucket_accumulate(rows, perm, sgn))
+    got = k.bk.bucket_reduce(k.bk.bucket_accumulate(rows, entries, offsets,
+                                                    lanes))
     assert _affine(k.ced.decode_rows(got)[0]) == _affine(total)
 
 
-@pytest.mark.parametrize("bad", ["points", "perm-dtype", "shapes", "lanes",
-                                 "contiguity", "index", "buckets"])
+@pytest.mark.parametrize("bad", ["points", "entries-dtype", "shapes",
+                                 "lanes", "contiguity", "index", "offsets",
+                                 "buckets", "windows"])
 def test_wrappers_reject_malformed_inputs(bad, k):
     t = k.torch
     pts = k.ced.encode_points([_port(p) for p in _ref_points(4, 2)], "cpu")
-    perm = t.full((2, 8, 4), -1, dtype=t.int32)
-    sgn = t.zeros_like(perm)
-    if bad == "buckets":
+    # two windows of four buckets: entries 0, 3, -2 (negated 2), 1
+    entries = t.tensor([0, 3, 2 | -(1 << 31), 1], dtype=t.int32)
+    offsets = t.tensor([0, 2, 2, 3, 3, 3, 3, 4, 4], dtype=t.int32)
+    lanes = 4
+    k.bk.bucket_accumulate(pts, entries, offsets, lanes)  # well formed
+    if bad in ("buckets", "windows"):
+        shape = (2, 129, 16) if bad == "buckets" else (33, 4, 16)
         with pytest.raises(ValueError):
-            k.bk.bucket_reduce(t.zeros((2, 129, 16), dtype=t.int64))
+            k.bk.bucket_reduce(t.zeros(shape, dtype=t.int64))
         return
     if bad == "points":
         pts = pts.to(t.int32)
-    elif bad == "perm-dtype":
-        perm = perm.to(t.int64)
+    elif bad == "entries-dtype":
+        entries = entries.to(t.int64)
     elif bad == "shapes":
-        sgn = sgn[:, :4].contiguous()
+        offsets = offsets[:-1].contiguous()  # not nw * lanes + 1
     elif bad == "lanes":
-        perm = t.full((2, 8, 129), -1, dtype=t.int32)
-        sgn = t.zeros_like(perm)
+        lanes = 129
     elif bad == "index":
-        perm[1, 0, 2] = 4  # one past the four points
+        entries[1] = 4  # one past the four points
+    elif bad == "offsets":
+        offsets[3] = 1  # not monotone
     else:
-        perm = perm.transpose(1, 2)
+        entries = t.stack([entries, entries], 1)[:, 0]
     with pytest.raises(ValueError):
-        k.bk.bucket_accumulate(pts, perm, sgn)
+        k.bk.bucket_accumulate(pts, entries, offsets, lanes)
 
 
 # ---------------------------------------------------------------------------

@@ -363,7 +363,7 @@ def test_msm_tail_bodies_match_plain(host_lib, case, k):
     part = np.full((B, nw, R, 16), SENTINEL)
     out = np.full((B, 16), SENTINEL)
     host_lib.host_msm_tail(_p(acc), _p(part), _p(out), B, nw, S, R, L, Lc,
-                           P_)
+                           P_, 4)
     plain = k.mc.msm_tail_plain(k.ced.from_reference_rows(
         rows, "cpu").reshape(B, nw, S, 16))
     assert np.array_equal(out, k.ced.to_rows(plain))
@@ -383,9 +383,42 @@ def test_msm_tail_body_identity_result(host_lib, k):
     rows = np.ascontiguousarray(native._pts_to_u64(pts))
     part = np.full((B, nw, 1, 16), SENTINEL)
     out = np.full((B, 16), SENTINEL)
-    host_lib.host_msm_tail(_p(rows), _p(part), _p(out), B, nw, S, 1, 4, 4, 8)
-    ident = [0, 0, 0, 0, 1, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0]
-    assert out.tolist() == [ident] * B
+    host_lib.host_msm_tail(_p(rows), _p(part), _p(out), B, nw, S, 1, 4, 4, 8,
+                           4)
+    assert out.tolist() == [IDENT_ROW] * B
+
+
+IDENT_ROW = [0, 0, 0, 0, 1, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0]
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("nw", [1, 3, 32])
+def test_tail_combine_window_bits_match_plain_horner(host_lib, bits, nw, k):
+    """coop.cuh's combination (tail_window, tail_group, tail_shift) with
+    windows of 4 bits (K2's) and 8 bits (K14's), 8 window groups of 4
+    lanes, against the plain Horner sum_w 2^(bits (nw-1-w)) S_w and the C++
+    tier's MSM; then with every window summing to the identity, the
+    identity row."""
+    S = 2
+    pts = _rescaled_points(nw * S, 7 * nw + bits)
+    rows = np.ascontiguousarray(native._pts_to_u64(pts))
+    part = np.full((1, nw, 1, 16), SENTINEL)
+    out = np.full((1, 16), SENTINEL)
+    host_lib.host_msm_tail(_p(rows), _p(part), _p(out), 1, nw, S, 1, 4, 4, 8,
+                           bits)
+    acc = k.ced.from_reference_rows(rows, "cpu").reshape(1, nw, S, 16)
+    sums = k.mc._tree_sum(k.ced.split_rows(acc), 2)
+    plain = k.ced.normalize_rows(k.mc._horner(sums, nw, bits=bits))
+    assert np.array_equal(out, k.ced.to_rows(plain))
+    sc = [pow(2, bits * (nw - 1 - w), ELL) for w in range(nw) for _ in range(S)]
+    assert native._u64_to_pts(out)[0] == native.ed_msm(pts, sc)
+    zero = []
+    for p in pts[:nw]:
+        zero += [p, -p]
+    rows = np.ascontiguousarray(native._pts_to_u64(zero))
+    host_lib.host_msm_tail(_p(rows), _p(part), _p(out), 1, nw, S, 1, 4, 4, 8,
+                           bits)
+    assert out.tolist() == [IDENT_ROW]
 
 
 def _rescaled_points(n, seed):
@@ -403,55 +436,104 @@ def _rescaled_points(n, seed):
     return pts
 
 
-def _bucket_inputs(k, n, seed):
-    """Rows, layout and bucket sums (plain K13) of an MSM of n points with
-    edge scalars, the digits 128 and -128 among them."""
-    sc = ([ELL - 1, 1, 128 + (128 << 8), ELL - 128, ELL // 2, ELL // 2 + 1]
-          + _scalars(n, seed))[:n]
+def _bucket_inputs(k, n, seed, lanes=None, small=False):
+    """Rows, compact layout and bucket sums (plain K13) of an MSM of n
+    points with edge scalars, the digits 128 and -128 among them; with
+    ``small`` scalars whose digits lie in -3..3 (the lanes = 4 layout, and
+    at lanes 128 trailing empty columns in every window)."""
+    lanes = lanes or k.bk.LANES
+    rng = random.Random(seed)
+    if small:
+        sc = [sum(rng.randrange(4) << (8 * j) for j in range(3))
+              for _ in range(n)]
+        sc = [ELL - v if i % 3 == 1 else v for i, v in enumerate(sc)]
+    else:
+        sc = ([ELL - 1, 1, 128 + (128 << 8), ELL - 128, ELL // 2,
+               ELL // 2 + 1] + _scalars(n, seed))[:n]
     rows = np.ascontiguousarray(native._pts_to_u64(_rescaled_points(n, seed)))
-    perm, sgn = k.bk.layout_for(sc, 8, k.bk.LANES, "cpu")
+    entries, offsets, count = k.bk.layout_for(sc, 8, lanes, "cpu")
     plain = k.bk.bucket_accumulate_plain(
-        k.ced.from_reference_rows(rows, "cpu"), perm, sgn)
-    return sc, rows, perm, sgn, plain
+        k.ced.from_reference_rows(rows, "cpu"), entries, offsets, lanes)
+    return sc, rows, entries, offsets, count, plain
 
 
-@pytest.mark.parametrize("n,seg", [(1, 64), (17, 3), (64, 5)])
-def test_bucket_accum_bodies_match_plain(host_lib, n, seg, k):
-    """K13's three steps (precomputed form, segment sums, column sums)
-    against the plain version: equal bucket sums once normalized (the two
-    add in other orders)."""
-    _sc, rows, perm, sgn, plain = _bucket_inputs(k, n, n)
-    nw, D, lanes = perm.shape
-    nseg = -(-D // seg)
-    pm, sg = perm.numpy().copy(), sgn.numpy().copy()
+# K13's cases: id -> (n, entries a thread C, lanes a column's combination
+# M, lanes, small digits).  C = 5 and 3 divide no column ("C5", "C3"),
+# C = 2 with M = 3 makes the top window's columns span many threads and
+# many partials a combining lane, C = 64 at lanes 4 one thread span many
+# short columns and empty ones, small digits at lanes 128 leave trailing
+# empty columns in every window; M = 32 is the kernel's warp
+ACCUM_CASES = {"1-C64": (1, 64, 32, 128, False),
+               "17-C3-M2": (17, 3, 2, 128, False),
+               "64-C5": (64, 5, 32, 128, False),
+               "64-C2-M3": (64, 2, 3, 128, False),
+               "9-C64-lanes4": (9, 64, 32, 4, True),
+               "40-C7-lanes4": (40, 7, 2, 4, True),
+               "40-C4-trailing-empty": (40, 4, 32, 128, True)}
+
+
+@pytest.mark.parametrize("case", list(ACCUM_CASES))
+def test_bucket_accum_bodies_match_plain(host_lib, case, k):
+    """K13's steps (precomputed form, every accumulation thread over its C
+    entries, every column's combination with M lanes) against the plain
+    version: equal bucket sums once normalized (the two add in other
+    orders), the output and partials filled with a sentinel first, empty
+    columns the identity row."""
+    n, chunk, M, lanes, small = ACCUM_CASES[case]
+    _sc, rows, entries, offsets, count, plain = _bucket_inputs(
+        k, n, n + chunk, lanes, small)
+    nw = (offsets.numel() - 1) // lanes
+    off = offsets.numpy()
     pre = np.zeros((n, 16), np.uint64)
-    part = np.zeros((nseg, nw * lanes, 16), np.uint64)
-    used = np.zeros((nseg, nw * lanes), np.uint8)
-    out = np.zeros((nw * lanes, 16), np.uint64)
-    host_lib.host_bucket_accum(_p(rows), _p(pre), _p(pm), _p(sg), _p(part),
-                               _p(used), _p(out), n, nw, D, lanes, seg)
+    part = np.full((-(-count // chunk), 2, 16), SENTINEL)
+    buf = np.full((M, 16), SENTINEL)
+    out = np.full((nw * lanes, 16), SENTINEL)
+    host_lib.host_bucket_accum(_p(rows), _p(pre), _p(entries.numpy()),
+                               _p(off), _p(part), _p(buf), _p(out), n, nw,
+                               lanes, count, chunk, M)
+    empty = np.diff(off) == 0
+    assert empty.any()
+    assert (out[empty] == np.array(IDENT_ROW, np.uint64)).all()
     norm = lambda t: k.ced.normalize_rows(k.ced.split_rows(t))  # noqa: E731
     got = k.ced.from_reference_rows(out, "cpu")
     assert k.torch.equal(norm(got), norm(plain.reshape(-1, 16)))
 
 
-@pytest.mark.parametrize("n", [1, 17, 64])
-def test_bucket_reduce_bodies_match_plain_and_native(host_lib, n, k):
-    """K14's suffix-scan and tree steps, run step by step, and its Horner
-    ladder (8 doublings a window) against the plain version and the C++
-    tier's MSM of the same points and scalars."""
-    sc, rows, _perm, _sgn, plain = _bucket_inputs(k, n, 3 * n)
+@pytest.mark.parametrize("n,L,P_", [(1, 4, 8), (17, 4, 8), (64, 4, 8),
+                                    (64, 1, 3), (17, 2, 1)])
+def test_bucket_reduce_bodies_match_plain_and_native(host_lib, n, L, P_, k):
+    """K14's suffix scan and tree on lane groups of L lanes, run step by
+    step, and its combination with 8-bit windows over P window groups
+    against the plain version and the C++ tier's MSM of the same points
+    and scalars."""
+    sc, rows, _e, _o, _c, plain = _bucket_inputs(k, n, 3 * n)
     nw, lanes, _ = plain.shape
     buckets = np.ascontiguousarray(k.ced.to_rows(plain))
-    buf = np.zeros((2, lanes, 16), np.uint64)
-    wsum = np.zeros((nw, 16), np.uint64)
-    out = np.zeros(16, np.uint64)
-    host_lib.host_bucket_reduce(_p(buckets), _p(buf), _p(wsum), _p(out), nw,
-                                lanes)
+    wsum = np.full((nw, 16), SENTINEL)
+    out = np.full(16, SENTINEL)
+    host_lib.host_bucket_reduce(_p(buckets), _p(wsum), _p(out), nw, lanes, L,
+                                P_)
     expect = k.ced.to_rows(k.bk.bucket_reduce_plain(plain))[0]
     assert np.array_equal(out, expect)
     host = native.ed_msm(native._u64_to_pts(rows), sc)
     assert native._u64_to_pts(out[None])[0] == host
+
+
+@pytest.mark.parametrize("lanes", [4, 5, 128])
+def test_bucket_reduce_body_identity_result(host_lib, lanes, k):
+    """K14 where every window's weighted sum is the identity (bucket 0 holds
+    -2 P and bucket 1 P, the rest the identity): the identity row."""
+    nw = 3
+    ident = EdwardsPoint.identity
+    pts = []
+    for p in _rescaled_points(nw, 11):
+        pts += [p ** (ELL - 2), p] + [ident] * (lanes - 2)
+    buckets = np.ascontiguousarray(native._pts_to_u64(pts))
+    wsum = np.full((nw, 16), SENTINEL)
+    out = np.full(16, SENTINEL)
+    host_lib.host_bucket_reduce(_p(buckets), _p(wsum), _p(out), nw, lanes, 4,
+                                8)
+    assert out.tolist() == IDENT_ROW
 
 
 @pytest.mark.parametrize("n", [1, 7, 40])

@@ -89,8 +89,8 @@ __global__ void __launch_bounds__(TAIL_WINDOWS * TAIL_LANES)
   extern __shared__ uint64_t smem[];
   g2_coop *sh = (g2_coop *)smem;
   fp2(*wsum)[3] = (fp2(*)[3])(sh + TAIL_WINDOWS);
-  tail_combine<TAIL_LANES, TAIL_CHAIN_LANES, TAIL_GROUPS>(sh, wsum, part,
-                                                          out, nw, R);
+  tail_combine<TAIL_LANES, TAIL_CHAIN_LANES, TAIL_GROUPS, 4>(sh, wsum, part,
+                                                             out, nw, R);
 }
 
 // acc [B][nw][S][24] -> part [B][nw][R][24] (scratch) -> out [B][24]

@@ -74,8 +74,8 @@ __global__ void __launch_bounds__(TAIL_WINDOWS * TAIL_LANES)
                           int R) {
   __shared__ g1_coop sh[TAIL_WINDOWS];
   __shared__ fp wsum[TAIL_WINDOWS][3];
-  tail_combine<TAIL_LANES, TAIL_LANES, TAIL_GROUPS>(sh, wsum, part, out, nw,
-                                                    R);
+  tail_combine<TAIL_LANES, TAIL_LANES, TAIL_GROUPS, 4>(sh, wsum, part, out,
+                                                       nw, R);
 }
 
 // acc [B][nw][S][12] -> part [B][nw][R][12] (scratch) -> out [B][12]

@@ -6,61 +6,96 @@
 // buckets, computed as sum_b suffix(B)_b, then the Horner ladder over the
 // most-significant-first windows (8 doublings and one add each) and the
 // normalized row.  The TPU ran the scan and a butterfly all-reduce across
-// the 128 vector lanes; here one block per window holds its buckets in
-// shared memory (two 16 KB buffers): a Hillis-Steele inclusive suffix scan
-// (log2(lanes) rounds of one complete add a thread, ping-ponging between
-// the buffers), then a tree sum over the lanes.  Blocks run in no order,
-// so the Horner ladder is a second launch, one thread.
+// its 128 vector lanes.  Here, two launches:
 //
-// Bound: integer multiplies.  The Horner thread is a serial chain of 8 *
-// (nw - 1) doublings, nw adds and a Fermat inversion: its latency, not the
-// card's throughput, sets the time, as in K2.
+// * bucket_window_kernel, a block per window: a lane group of BUCKET_LANES
+//   lanes per bucket (ed_coop slots in dynamic shared memory, 416 bytes a
+//   bucket), a Hillis-Steele inclusive suffix scan (log2(lanes) rounds),
+//   then a tree sum over the buckets (log2(lanes) rounds); every add is
+//   K2's two levels of four products spread over the group's lanes
+//   (ed25519_kernels.cuh: bucket_scan_fetch, bucket_scan_add).  The scan
+//   and the tree keep a log depth of 2 log2(lanes) adds; eight bit-plane
+//   subset sums, the other log-depth form, would add their own Horner (7
+//   doublings and 7 adds) to the chain;
+// * bucket_tail_kernel, one block: K2's combination (coop.cuh:
+//   tail_combine over the ed_coop steps) with 8-bit windows: a group of 4
+//   lanes per window sum, REDUCE_GROUPS groups each run a Horner over a
+//   run of windows, group 0 shifts, adds and normalizes by one inversion
+//   (fe_inv_var).
+//
+// Bound: integer multiplies by the card's throughput, but the combination
+// is one chain of 8 (nw - 1) doublings (248 at nw = 32), each two rounds
+// of products, and the inversion: its latency sets the time, as in K2.
+// The one-thread Horner it replaces ran the same doublings with their 8
+// products in a row, 32 adds and a Fermat chain of 265 products.
 
 #include "ed25519_kernels.cuh"
 #include "launch.cuh"
 
-#define BUCKET_THREADS 128  // the most buckets a window holds
+#define BUCKET_LANES 4     // lanes per group operation
+#define BUCKET_MAX 128     // the most buckets a window holds
+#define REDUCE_WINDOWS 32  // the most windows (256 / 8)
+#define REDUCE_GROUPS 8    // window groups of the combination
 
-__global__ void bucket_window_kernel(const uint64_t *buckets, uint64_t *wsum,
-                                     int lanes) {
-  __shared__ uint64_t sh[2][BUCKET_THREADS * 16];
-  int w = blockIdx.x;
-  int b = threadIdx.x;
-  const uint64_t *src = buckets + (size_t)w * lanes * 16;
-  if (b < lanes)
-    for (int j = 0; j < 16; j++) sh[0][b * 16 + j] = src[b * 16 + j];
+static_assert(32 % BUCKET_LANES == 0, "a lane group lies in one warp");
+static_assert(REDUCE_GROUPS <= REDUCE_WINDOWS, "the groups fit the block");
+
+__global__ void __launch_bounds__(BUCKET_MAX * BUCKET_LANES)
+    bucket_window_kernel(const uint64_t *buckets, uint64_t *wsum, int lanes) {
+  extern __shared__ uint64_t smem[];
+  ed_coop *sh = (ed_coop *)smem;
+  int b = threadIdx.x / BUCKET_LANES;
+  CoopLanes ex = coop_lanes(BUCKET_LANES);
+  bucket_load(ex, sh, buckets + (size_t)blockIdx.x * lanes * 16, b);
   __syncthreads();
-  int cur = 0;
   for (int shift = 1; shift < lanes; shift <<= 1) {
-    if (b < lanes) bucket_scan_step(sh[cur], sh[cur ^ 1], lanes, b, shift);
+    bucket_scan_fetch(ex, sh, lanes, b, shift);
     __syncthreads();
-    cur ^= 1;
+    bucket_scan_add(ex, sh, lanes, b, shift);
+    __syncthreads();
   }
   int p2 = 1;
   while (p2 < lanes) p2 <<= 1;
   for (int stride = p2 >> 1; stride > 0; stride >>= 1) {
-    if (b < stride) bucket_tree_step(sh[cur], lanes, b, stride);
+    if (b < stride) {
+      bucket_scan_fetch(ex, sh, lanes, b, stride);
+      bucket_scan_add(ex, sh, lanes, b, stride);
+    }
     __syncthreads();
   }
-  if (b < 16) wsum[(size_t)w * 16 + b] = sh[cur][b];
+  if (b == 0)
+    ex.run([&](int l) {
+      coop_store_row(wsum + (size_t)blockIdx.x * 16, sh[0].v, l, ex.L);
+    });
 }
 
-__global__ void bucket_horner_kernel(const uint64_t *wsum, uint64_t *out,
-                                     int nw) {
-  if (threadIdx.x == 0) msm_horner_one(wsum, out, nw, 8);
+__global__ void __launch_bounds__(REDUCE_WINDOWS * BUCKET_LANES)
+    bucket_tail_kernel(const uint64_t *wsum, uint64_t *out, int nw) {
+  __shared__ ed_coop sh[REDUCE_WINDOWS];
+  __shared__ fe ws[REDUCE_WINDOWS][4];
+  tail_combine<BUCKET_LANES, BUCKET_LANES, REDUCE_GROUPS, 8>(sh, ws, wsum,
+                                                             out, nw, 1);
 }
 
-// buckets [nw][lanes][16] (lanes <= 128) -> wsum [nw][16] scratch ->
-// out [16] canonical row
+// buckets [nw][lanes][16] (lanes <= 128, nw <= 32) -> wsum [nw][16]
+// scratch -> out [16] canonical row
 extern "C" int vmpc_cu_bucket_reduce(const uint64_t *buckets, uint64_t *wsum,
                                      uint64_t *out, int nw, int lanes,
                                      void *stream) {
-  if (nw < 1 || lanes < 1 || lanes > BUCKET_THREADS)
+  if (nw < 1 || nw > REDUCE_WINDOWS || lanes < 1 || lanes > BUCKET_MAX)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  bucket_window_kernel<<<nw, BUCKET_THREADS, 0, st>>>(buckets, wsum, lanes);
-  int rc = (int)cudaGetLastError();
+  // on every call: the attribute holds for the current device only
+  int smem = (int)(BUCKET_MAX * sizeof(ed_coop));
+  int rc = (int)cudaFuncSetAttribute(
+      bucket_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (rc) return rc;
-  bucket_horner_kernel<<<1, 32, 0, st>>>(wsum, out, nw);
+  cudaStream_t st = (cudaStream_t)stream;
+  bucket_window_kernel<<<nw, lanes * BUCKET_LANES,
+                         lanes * sizeof(ed_coop), st>>>(buckets, wsum, lanes);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  bucket_tail_kernel<<<1, REDUCE_WINDOWS * BUCKET_LANES, 0, st>>>(wsum, out,
+                                                                  nw);
   return (int)cudaGetLastError();
 }

@@ -104,12 +104,12 @@ FE_FN void tail_window(const Lanes &ex, Slots &s, const uint64_t *part,
 }
 
 // group j's Horner over its windows (most significant first) of the
-// window sums wsum [nw][C]: v[0..C) = sum_{w in [a, b)} 16^(b-1-w) S_w, left
-// in the operand's form (an empty group does nothing: tail_shift stops
-// before it)
+// window sums wsum [nw][C], windows of ``bits`` bits: v[0..C) =
+// sum_{w in [a, b)} 2^(bits (b-1-w)) S_w, left in the operand's form (an
+// empty group does nothing: tail_shift stops before it)
 template <class Lanes, class Slots, class Sums>
 FE_FN void tail_group(const Lanes &ex, Slots &s, Sums wsum, int j, int nw,
-                      int P) {
+                      int P, int bits) {
   constexpr int C = Slots::COORDS;
   int a, b;
   tail_span(j, nw, P, a, b);
@@ -119,7 +119,7 @@ FE_FN void tail_group(const Lanes &ex, Slots &s, Sums wsum, int j, int nw,
     if (l == 0) s.v[2 * C] = {};
   });
   for (int w = a + 1; w < b; w++) {
-    for (int i = 0; i < 4; i++) coop_dbl(ex, s);
+    for (int i = 0; i < bits; i++) coop_dbl(ex, s);
     ex.run([&](int l) { coop_copy(s.v + C, wsum[w], l, ex.L); });
     coop_add(ex, s);
   }
@@ -127,17 +127,17 @@ FE_FN void tail_group(const Lanes &ex, Slots &s, Sums wsum, int j, int nw,
 }
 
 // group 0 after every group's Horner: shift and add the groups' sums
-// (sh[j].v[0..C) of group j), 16^(nw - b_j) H_j, into sh[0], then its
-// normalized result row (lane 0)
+// (sh[j].v[0..C) of group j), 2^(bits (nw - b_j)) H_j, into sh[0], then
+// its normalized result row (lane 0)
 template <class Lanes, class Slots>
-FE_FN void tail_shift(const Lanes &ex, Slots *sh, int nw, int P,
+FE_FN void tail_shift(const Lanes &ex, Slots *sh, int nw, int P, int bits,
                       uint64_t *out) {
   int a, b, prev;
   tail_span(0, nw, P, a, prev);
   for (int j = 1; j < P; j++) {
     tail_span(j, nw, P, a, b);
     if (a == b) break;
-    for (int i = 0; i < 4 * (b - prev); i++) coop_dbl(ex, sh[0]);
+    for (int i = 0; i < bits * (b - prev); i++) coop_dbl(ex, sh[0]);
     ex.run([&](int l) {
       coop_copy(sh[0].v + Slots::COORDS, sh[j].v, l, ex.L);
     });
@@ -151,11 +151,12 @@ FE_FN void tail_shift(const Lanes &ex, Slots *sh, int nw, int P,
 
 #if defined(__CUDACC__)
 // the combination kernel's body, for batch blockIdx.x: part [B][nw][R][row]
-// -> out [B][row].  The groups of L lanes sum each window's R partials (a
-// group per window, sh[nw] and wsum[nw][C] in shared memory), then P groups
-// of Lc lanes run a Horner each over a run of ceil(nw / P) windows, then
-// group 0 shifts, adds and normalizes.
-template <int L, int Lc, int P, class Slots, class E, int C>
+// -> out [B][row] = sum_w 2^(BITS (nw-1-w)) (window w's sum).  The groups of
+// L lanes sum each window's R partials (a group per window, sh[nw] and
+// wsum[nw][C] in shared memory), then P groups of Lc lanes run a Horner
+// each over a run of ceil(nw / P) windows, then group 0 shifts, adds and
+// normalizes.  K2, K6 and K10 take 4-bit windows, K14 8-bit ones.
+template <int L, int Lc, int P, int BITS, class Slots, class E, int C>
 __device__ __forceinline__ void tail_combine(Slots *sh, E (*wsum)[C],
                                              const uint64_t *part,
                                              uint64_t *out, int nw, int R) {
@@ -169,8 +170,8 @@ __device__ __forceinline__ void tail_combine(Slots *sh, E (*wsum)[C],
   __syncthreads();
   grp = threadIdx.x / Lc;
   CoopLanes ex = coop_lanes(Lc);
-  if (grp < P) tail_group(ex, sh[grp], wsum, grp, nw, P);
+  if (grp < P) tail_group(ex, sh[grp], wsum, grp, nw, P, BITS);
   __syncthreads();
-  if (grp == 0) tail_shift(ex, sh, nw, P, out + blockIdx.x * row);
+  if (grp == 0) tail_shift(ex, sh, nw, P, BITS, out + blockIdx.x * row);
 }
 #endif

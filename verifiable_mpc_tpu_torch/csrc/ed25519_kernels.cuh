@@ -12,8 +12,10 @@
 //   K1 table     pre rows [n][8]: each point's multiples 1..8
 //   K4 table     affine rows [nw*9]: row w*9 + m = m * 16^(nw-1-w) * base
 //   packed digits u8 [nw/2][n] (digits.cuh)
-//   bucket layout int32 [nw][D][lanes] perm (point index, -1 = padding)
-//                and sgn (1 = negate), msm_bucket_cuda.bucket_layout
+//   bucket layout int32 entries [E] (point indices, bit 31 set where the
+//                digit is negative) and offsets [nw*lanes + 1] (column c
+//                holds entries offsets[c] .. offsets[c+1] - 1),
+//                msm_bucket_cuda.compact_layout
 //   Montgomery limbs u32 [n][16] per coordinate: 16-bit limbs of x * 2^256
 //                mod p, least significant first (ops/limbs_mont.py)
 
@@ -89,27 +91,6 @@ FE_FN void msm_accum_one(const uint64_t *tbl, const uint8_t *digits,
     acc = t;
   }
   ge_store(acc_row, acc);
-}
-
-// K14's Horner (B7's, msm_bucket._make_reduce_kernel, bits = 8), one
-// thread: window sums [nw] (most significant first) -> canonical normalized
-// row of sum_w 2^(bits (nw-1-w)) wsum[w].
-FE_FN void msm_horner_one(const uint64_t *wsum, uint64_t *out_row, int nw,
-                          int bits) {
-  ge_ext h;
-  ge_identity(h);
-  for (int w = 0; w < nw; w++) {
-    for (int k = 0; k < bits; k++) {
-      ge_ext t;
-      ge_dbl(t, h);
-      h = t;
-    }
-    ge_ext sw, t;
-    ge_load(sw, wsum + (size_t)w * 16);
-    ge_add(t, h, sw);
-    h = t;
-  }
-  ge_store_normalized(out_row, h);
 }
 
 // ---------------------------------------------------------------------------
@@ -220,6 +201,13 @@ FE_FN void coop_load_row(fe *dst, const uint64_t *row, int lane, int L) {
     dst[i >> 2].v[2 * (i & 3)] = (uint32_t)x;
     dst[i >> 2].v[2 * (i & 3) + 1] = (uint32_t)(x >> 32);
   }
+}
+
+// a point row (16 u64) <- slots src[0..3], the words split over the lanes
+FE_FN void coop_store_row(uint64_t *row, const fe *src, int lane, int L) {
+  for (int i = lane; i < 16; i += L)
+    row[i] = src[i >> 2].v[2 * (i & 3)] |
+             (uint64_t)src[i >> 2].v[2 * (i & 3) + 1] << 32;
 }
 
 // slots dst[0..3] <- src[0..3], the words split over the lanes
@@ -388,8 +376,19 @@ FE_FN void comb_group(const uint64_t *table, const uint8_t *digits, int n,
 }
 
 // ---------------------------------------------------------------------------
-// K13 bodies (B6, msm_bucket._make_accum_kernel): bucket accumulation
+// K13 bodies (B6, msm_bucket._make_accum_kernel): bucket accumulation over
+// the compact layout
 // ---------------------------------------------------------------------------
+//
+// Thread t sums the entries [t C, t C + C) of the flat entry list (C =
+// chunk, the last thread fewer) run by run, a run being one column's
+// entries inside the thread.  A run that is its whole column goes to
+// out[c]; a run whose column also holds entries before the thread's first
+// goes to the thread's partial slot 0, one whose column holds entries
+// after its last (and none before) to slot 1 (part [T][2][16]).  A
+// crossing column c then has partials in threads t0 = offsets[c] / C ..
+// t1 = (offsets[c+1] - 1) / C: slot 0 of each, except slot 1 of t0 where
+// the column starts inside t0 (bucket_partial).
 
 // K13's first launch: a point row -> its precomputed-form row
 FE_FN void bucket_pre_one(const uint64_t *pt_row, uint64_t *pre_row) {
@@ -400,80 +399,145 @@ FE_FN void bucket_pre_one(const uint64_t *pt_row, uint64_t *pre_row) {
   ge_pre_store(pre_row, q);
 }
 
-// The partial sum of rows d0 .. d1-1 of bucket column (w, b): each entry
-// is the precomputed-form row of point perm[w][d][b], negated where
-// sgn[w][d][b] != 0 (its first two coordinates swap, 2dT negates); a
-// padding entry (-1) adds the identity, so it is skipped.  Returns the
-// number of points added.
-FE_FN int bucket_accum_one(const uint64_t *pre, const int32_t *perm,
-                           const int32_t *sgn, int D, int lanes, int w, int b,
-                           int d0, int d1, uint64_t *out_row) {
-  ge_ext acc;
-  ge_identity(acc);
-  int added = 0;
-  for (int d = d0; d < d1; d++) {
-    size_t k = ((size_t)w * D + d) * lanes + b;
-    int i = perm[k];
-    if (i < 0) continue;
-    ge_pre q;
-    ge_pre_load(q, pre + (size_t)i * 16);
-    if (sgn[k]) ge_pre_neg(q);
-    ge_ext t;
-    ge_add_pre(t, acc, q);
-    acc = t;
-    added++;
+// the column of entry j < offsets[cols]: the last c with offsets[c] <= j
+FE_FN int bucket_column_of(const int32_t *offsets, int cols, int j) {
+  int lo = 0, hi = cols;  // offsets[lo] <= j < offsets[hi]
+  while (hi - lo > 1) {
+    int mid = (lo + hi) >> 1;
+    if (offsets[mid] <= j) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
   }
-  ge_store(out_row, acc);
-  return added;
+  return lo;
 }
 
-// K13's last launch: bucket c's sum over the segment partials
-// part [nseg][cols][16], skipping those whose segment added no point
-// (used [nseg][cols] is 0: the partial is the identity)
-FE_FN void bucket_segsum_one(const uint64_t *part, const uint8_t *used,
-                             int nseg, int cols, int c, uint64_t *out_row) {
+// K13's accumulation, thread t of ceil(count / chunk): its runs' sums,
+// each entry's precomputed row negated in place where the entry is
+// negative, then mixed-added (the signed add's operand picks kept the row
+// in local memory and ran slower)
+FE_FN void bucket_accum_thread(const uint64_t *pre, const int32_t *entries,
+                               const int32_t *offsets, int cols, int count,
+                               int chunk, int t, uint64_t *part,
+                               uint64_t *out) {
+  int j0 = t * chunk;
+  int j1 = count - j0 > chunk ? j0 + chunk : count;
+  int c = bucket_column_of(offsets, cols, j0);
+  int start = j0;
+  int end = offsets[c + 1] < j1 ? offsets[c + 1] : j1;
   ge_ext acc;
   ge_identity(acc);
-  for (int s = 0; s < nseg; s++) {
-    size_t k = (size_t)s * cols + c;
-    if (!used[k]) continue;
+  for (int j = j0; j < j1; j++) {
+    int e = entries[j];
+    ge_pre q;
+    ge_pre_load(q, pre + (size_t)(e & 0x7fffffff) * 16);
+    if (e < 0) ge_pre_neg(q);
+    ge_ext r;
+    ge_add_pre(r, acc, q);
+    acc = r;
+    if (j + 1 == end) {
+      uint64_t *dst;
+      if (offsets[c] >= j0 && offsets[c + 1] <= j1) {
+        dst = out + (size_t)c * 16;
+      } else {
+        dst = part + ((size_t)t * 2 + (start == j0 ? 0 : 1)) * 16;
+      }
+      ge_store(dst, acc);
+      ge_identity(acc);
+      start = end;
+      if (start < j1) {
+        do {
+          c++;
+        } while (offsets[c + 1] <= start);  // empty columns
+        end = offsets[c + 1] < j1 ? offsets[c + 1] : j1;
+      }
+    }
+  }
+}
+
+// the number of partials of column c: 0 where it is empty or lies inside
+// one thread's entries
+FE_FN int bucket_partials(const int32_t *offsets, int c, int chunk) {
+  int a = offsets[c], b = offsets[c + 1];
+  if (a == b) return 0;
+  int t0 = a / chunk, t1 = (b - 1) / chunk;
+  return t1 > t0 ? t1 - t0 + 1 : 0;
+}
+
+// partial k of column c's partials
+FE_FN const uint64_t *bucket_partial(const uint64_t *part,
+                                     const int32_t *offsets, int c, int chunk,
+                                     int k) {
+  int a = offsets[c];
+  int t = a / chunk + k;
+  int slot = k == 0 && a != t * chunk ? 1 : 0;
+  return part + ((size_t)t * 2 + slot) * 16;
+}
+
+// K13's combination, lane i of M of column c's warp: the partials i,
+// i + M, ... < np summed into the row dst (M <= np: every lane has one)
+FE_FN void bucket_combine_lane(const uint64_t *part, const int32_t *offsets,
+                               int c, int chunk, int np, int i, int M,
+                               uint64_t *dst) {
+  ge_ext acc;
+  ge_load(acc, bucket_partial(part, offsets, c, chunk, i));
+  for (int k = i + M; k < np; k += M) {
     ge_ext p, t;
-    ge_load(p, part + k * 16);
+    ge_load(p, bucket_partial(part, offsets, c, chunk, k));
     ge_add(t, acc, p);
     acc = t;
   }
-  ge_store(out_row, acc);
+  ge_store(dst, acc);
 }
 
-// ---------------------------------------------------------------------------
-// K14 bodies (B7, msm_bucket._make_reduce_kernel): sum_b (b+1) B_b of a
-// window as sum_b suffix(B)_b
-// ---------------------------------------------------------------------------
-
-// one Hillis-Steele step of the inclusive suffix scan over a window's
-// bucket rows: dst[b] = src[b] + src[b + shift] (the identity past the last
-// bucket)
-FE_FN void bucket_scan_step(const uint64_t *src, uint64_t *dst, int lanes,
-                            int b, int shift) {
-  ge_ext x;
-  ge_load(x, src + (size_t)b * 16);
-  if (b + shift < lanes) {
-    ge_ext y, t;
-    ge_load(y, src + (size_t)(b + shift) * 16);
-    ge_add(t, x, y);
-    x = t;
-  }
-  ge_store(dst + (size_t)b * 16, x);
-}
-
-// one step of the tree sum over the lanes: buf[b] += buf[b + stride]
-FE_FN void bucket_tree_step(uint64_t *buf, int lanes, int b, int stride) {
-  if (b + stride >= lanes) return;
+// one step of the combination's tree over the rows buf: buf[i] +=
+// buf[i + stride]
+FE_FN void bucket_tree_step(uint64_t *buf, int i, int stride) {
   ge_ext x, y, t;
-  ge_load(x, buf + (size_t)b * 16);
-  ge_load(y, buf + (size_t)(b + stride) * 16);
+  ge_load(x, buf + (size_t)i * 16);
+  ge_load(y, buf + (size_t)(i + stride) * 16);
   ge_add(t, x, y);
-  ge_store(buf + (size_t)b * 16, t);
+  ge_store(buf + (size_t)i * 16, t);
+}
+
+// ---------------------------------------------------------------------------
+// K14 bodies (B7, msm_bucket._make_reduce_kernel): a window's
+// sum_b (b+1) B_b as sum_b suffix(B)_b, every add on a lane group
+// ---------------------------------------------------------------------------
+//
+// Bucket b of a window is lane group b's slots sh[b] (ed_coop).  A round of
+// the inclusive suffix scan first copies bucket b + shift's point into b's
+// operand slots (bucket_scan_fetch, in every group before any adds: a
+// block barrier between), then adds it (bucket_scan_add); a round of the
+// tree over the scanned buckets does both for b < stride, whose sources
+// that round does not write.
+
+// bucket b's slots <- its row of the window's buckets (rows [lanes][16])
+template <class Lanes>
+FE_FN void bucket_load(const Lanes &ex, ed_coop *sh, const uint64_t *rows,
+                       int b) {
+  ex.run([&](int l) {
+    coop_load_row(sh[b].v, rows + (size_t)b * 16, l, ex.L);
+    if (l == 0) fe_zero(sh[b].v[8]);
+  });
+}
+
+// bucket b's operand <- bucket b + shift's point (nothing past the last)
+template <class Lanes>
+FE_FN void bucket_scan_fetch(const Lanes &ex, ed_coop *sh, int lanes, int b,
+                             int shift) {
+  if (b + shift >= lanes) return;
+  ex.run([&](int l) { coop_copy(sh[b].v + 4, sh[b + shift].v, l, ex.L); });
+}
+
+// bucket b += its operand (nothing past the last)
+template <class Lanes>
+FE_FN void bucket_scan_add(const Lanes &ex, ed_coop *sh, int lanes, int b,
+                           int shift) {
+  if (b + shift >= lanes) return;
+  coop_operand(ex, sh[b], 4);
+  coop_add(ex, sh[b]);
 }
 
 // ---------------------------------------------------------------------------

@@ -6,8 +6,9 @@
 // (tests/port/test_torch_cuda_host.py, tests/port/test_torch_bn_host.py,
 // tests/port/test_torch_bn2_host.py), and the loop bodies of the probe
 // kernels P1-P4 (probe_ops.cuh) against Python ints.  A kernel whose threads meet in
-// shared memory (K14's scan and tree) runs its steps here one thread after
-// the other, each step's threads reading what the step before wrote.
+// shared memory (K13's combination, K14's scan and tree, the tails' lane
+// groups) runs its steps here one thread after the other, each step's
+// threads reading what the step before wrote.
 //
 //   g++ -O2 -shared -fPIC -o libhost_check.so host_check.cc
 
@@ -19,14 +20,16 @@
 #include "ed25519_kernels.cuh"
 #include "probe_ops.cuh"
 
-// the combination of K2, K6 or K10 (coop.cuh's tail steps) for each batch:
-// part [B][nw][R][row] -> out [B][row], L lanes a group of the windows'
-// sums, Lc lanes a group of the Horners and the shift, P window groups;
-// the groups run one after another between the kernel's block barriers,
-// and each group step lane by lane (CoopLanes::run)
+// the combination of K2, K6, K10 or K14 (coop.cuh's tail steps) for each
+// batch: part [B][nw][R][row] -> out [B][row], L lanes a group of the
+// windows' sums, Lc lanes a group of the Horners and the shift, P window
+// groups, windows of ``bits`` bits; the groups run one after another
+// between the kernel's block barriers, and each group step lane by lane
+// (CoopLanes::run)
 template <class Slots, class E>
 static void host_tail_combine(const uint64_t *part, uint64_t *out, int B,
-                              int nw, int R, int L, int Lc, int P) {
+                              int nw, int R, int L, int Lc, int P,
+                              int bits) {
   constexpr int C = Slots::COORDS;
   const size_t row = C * sizeof(E) / sizeof(uint64_t);
   Slots *sh = new Slots[64];
@@ -36,8 +39,8 @@ static void host_tail_combine(const uint64_t *part, uint64_t *out, int B,
     for (int g = 0; g < nw; g++)
       tail_window(ex, sh[g], part + (size_t)(b * nw + g) * R * row, R,
                   wsum[g]);
-    for (int g = 0; g < P; g++) tail_group(ec, sh[g], wsum, g, nw, P);
-    tail_shift(ec, sh, nw, P, out + b * row);
+    for (int g = 0; g < P; g++) tail_group(ec, sh[g], wsum, g, nw, P, bits);
+    tail_shift(ec, sh, nw, P, bits, out + b * row);
   }
   delete[] sh;
   delete[] wsum;
@@ -63,11 +66,12 @@ void host_msm_accum(const uint64_t *tbl, const uint8_t *digits, int B, int n,
 }
 
 // K2 with R chunks a window, L lanes a group of the windows' sums, Lc
-// lanes a group of the Horners and the shift, and P window groups, as
+// lanes a group of the Horners and the shift, P window groups and windows
+// of ``bits`` bits (K2's 4; K14's combination takes 8), as
 // host_bn2_msm_tail: acc [B][nw][S][16] -> part [B][nw][R][16] (scratch)
 // -> out [B][16]
 void host_msm_tail(const uint64_t *acc, uint64_t *part, uint64_t *out, int B,
-                   int nw, int S, int R, int L, int Lc, int P) {
+                   int nw, int S, int R, int L, int Lc, int P, int bits) {
   int chunk = (S + R - 1) / R;
   for (int b = 0; b < B; b++)
     for (int w = 0; w < nw; w++)
@@ -82,7 +86,7 @@ void host_msm_tail(const uint64_t *acc, uint64_t *part, uint64_t *out, int B,
         }
         ge_store(part + ((size_t)(b * nw + w) * R + r) * 16, sum);
       }
-  host_tail_combine<ed_coop, fe>(part, out, B, nw, R, L, Lc, P);
+  host_tail_combine<ed_coop, fe>(part, out, B, nw, R, L, Lc, P, bits);
 }
 
 // one of K2's group operations on L lanes, run lane by lane: out = p + q
@@ -116,7 +120,7 @@ void host_msm(const uint64_t *pts, uint64_t *tbl, const uint8_t *digits,
   for (int w = 0; w < nw; w++)
     for (int s = 0; s < S; s++)
       msm_accum_one(tbl, digits, acc + ((size_t)w * S + s) * 16, n, w, s, S);
-  host_msm_tail(acc, part, out, 1, nw, S, 1, 4, 4, 8);
+  host_msm_tail(acc, part, out, 1, nw, S, 1, 4, 4, 8, 4);
 }
 
 // K3 with G threads: gl, gr [n][16], cdig nd NAF digits, pre [n][4],
@@ -134,51 +138,72 @@ void host_comb_norm(const uint64_t *table, const uint8_t *digits, int n,
   for (int g = 0; g < G; g++) comb_group(table, digits, n, nw, g, G, pre, out);
 }
 
-// K13: pts [n][16], pre [n][16] scratch, perm and sgn [nw][D][lanes],
-// part [nseg][nw * lanes][16] and used [nseg][nw * lanes] scratch ->
-// out [nw][lanes][16]
-void host_bucket_accum(const uint64_t *pts, uint64_t *pre, const int32_t *perm,
-                       const int32_t *sgn, uint64_t *part, uint8_t *used,
-                       uint64_t *out, int n, int nw, int D, int lanes,
-                       int seg) {
+// K13 with chunk entries a thread and M lanes a column's combination (the
+// kernel's warp: 32):
+// pts [n][16], pre [n][16] scratch, entries [count] and offsets
+// [nw * lanes + 1] (the compact layout), part [ceil(count / chunk)][2][16]
+// and buf [M][16] scratch -> out [nw][lanes][16]; every accumulation
+// thread, then every column's warp, its lanes one after another between
+// its barriers
+void host_bucket_accum(const uint64_t *pts, uint64_t *pre,
+                       const int32_t *entries, const int32_t *offsets,
+                       uint64_t *part, uint64_t *buf, uint64_t *out, int n,
+                       int nw, int lanes, int count, int chunk, int M) {
   for (int i = 0; i < n; i++)
     bucket_pre_one(pts + (size_t)i * 16, pre + (size_t)i * 16);
-  int nseg = (D + seg - 1) / seg;
   int cols = nw * lanes;
-  for (int s = 0; s < nseg; s++)
-    for (int c = 0; c < cols; c++) {
-      int d0 = s * seg;
-      int d1 = d0 + seg < D ? d0 + seg : D;
-      size_t k = (size_t)s * cols + c;
-      used[k] = bucket_accum_one(pre, perm, sgn, D, lanes, c / lanes,
-                                 c % lanes, d0, d1, part + k * 16) > 0;
+  for (int t = 0; t * chunk < count; t++)
+    bucket_accum_thread(pre, entries, offsets, cols, count, chunk, t, part,
+                        out);
+  for (int c = 0; c < cols; c++) {
+    uint64_t *dst = out + (size_t)c * 16;
+    if (offsets[c] == offsets[c + 1]) {
+      ge_ext z;
+      ge_identity(z);
+      ge_store(dst, z);
+      continue;
     }
-  for (int c = 0; c < cols; c++)
-    bucket_segsum_one(part, used, nseg, cols, c, out + (size_t)c * 16);
+    int np = bucket_partials(offsets, c, chunk);
+    if (np == 0) continue;
+    int m = np < M ? np : M;
+    for (int i = 0; i < m; i++)
+      bucket_combine_lane(part, offsets, c, chunk, np, i, m,
+                          buf + (size_t)i * 16);
+    int p2 = 1;
+    while (p2 < m) p2 <<= 1;
+    for (int stride = p2 >> 1; stride > 0; stride >>= 1)
+      for (int i = 0; i < stride && i + stride < m; i++)
+        bucket_tree_step(buf, i, stride);
+    memcpy(dst, buf, sizeof(uint64_t) * 16);
+  }
 }
 
-// K14: buckets [nw][lanes][16], buf [2][lanes][16] scratch,
-// wsum [nw][16] scratch -> out [16]
-void host_bucket_reduce(const uint64_t *buckets, uint64_t *buf, uint64_t *wsum,
-                        uint64_t *out, int nw, int lanes) {
+// K14 with L lanes a group operation and P window groups: buckets
+// [nw][lanes][16] -> wsum [nw][16] scratch -> out [16]; each window's
+// lane groups run one after another between the block's barriers, then
+// the combination with 8-bit windows
+void host_bucket_reduce(const uint64_t *buckets, uint64_t *wsum,
+                        uint64_t *out, int nw, int lanes, int L, int P) {
+  ed_coop *sh = new ed_coop[lanes];
+  CoopLanes ex = {0, L, 0};
   for (int w = 0; w < nw; w++) {
-    uint64_t *cur = buf, *nxt = buf + (size_t)lanes * 16;
-    memcpy(cur, buckets + (size_t)w * lanes * 16,
-           sizeof(uint64_t) * lanes * 16);
+    const uint64_t *rows = buckets + (size_t)w * lanes * 16;
+    for (int b = 0; b < lanes; b++) bucket_load(ex, sh, rows, b);
     for (int shift = 1; shift < lanes; shift <<= 1) {
-      for (int b = 0; b < lanes; b++)
-        bucket_scan_step(cur, nxt, lanes, b, shift);
-      uint64_t *t = cur;
-      cur = nxt;
-      nxt = t;
+      for (int b = 0; b < lanes; b++) bucket_scan_fetch(ex, sh, lanes, b, shift);
+      for (int b = 0; b < lanes; b++) bucket_scan_add(ex, sh, lanes, b, shift);
     }
     int p2 = 1;
     while (p2 < lanes) p2 <<= 1;
     for (int stride = p2 >> 1; stride > 0; stride >>= 1)
-      for (int b = 0; b < stride; b++) bucket_tree_step(cur, lanes, b, stride);
-    memcpy(wsum + (size_t)w * 16, cur, sizeof(uint64_t) * 16);
+      for (int b = 0; b < stride; b++) {
+        bucket_scan_fetch(ex, sh, lanes, b, stride);
+        bucket_scan_add(ex, sh, lanes, b, stride);
+      }
+    coop_store_row(wsum + (size_t)w * 16, sh[0].v, 0, 1);
   }
-  msm_horner_one(wsum, out, nw, 8);
+  delete[] sh;
+  host_tail_combine<ed_coop, fe>(wsum, out, 1, nw, 1, L, L, P, 8);
 }
 
 // K15: table [9][16] precomputed-form rows, digits [nw/2][n] -> out [n][16]
@@ -288,7 +313,7 @@ void host_bn_msm_tail(const uint64_t *acc, uint64_t *part, uint64_t *out,
         }
         g1_store(part + ((size_t)(b * nw + w) * R + r) * 12, sum);
       }
-  host_tail_combine<g1_coop, fp>(part, out, B, nw, R, L, L, P);
+  host_tail_combine<g1_coop, fp>(part, out, B, nw, R, L, L, P, 4);
 }
 
 // one of K6's group operations on L lanes, run lane by lane: out = p + q
@@ -435,7 +460,7 @@ void host_bn2_msm_tail(const uint64_t *acc, uint64_t *part, uint64_t *out,
         }
         g2_store(part + ((size_t)(b * nw + w) * R + r) * BN2_ROW, sum);
       }
-  host_tail_combine<g2_coop, fp2>(part, out, B, nw, R, L, Lc, P);
+  host_tail_combine<g2_coop, fp2>(part, out, B, nw, R, L, Lc, P, 4);
 }
 
 // one of K10's group operations on L lanes, run lane by lane: out = p + q

@@ -79,8 +79,8 @@ __global__ void __launch_bounds__(TAIL_WINDOWS * TAIL_LANES)
     msm_combine_kernel(const uint64_t *part, uint64_t *out, int nw, int R) {
   __shared__ ed_coop sh[TAIL_WINDOWS];
   __shared__ fe wsum[TAIL_WINDOWS][4];
-  tail_combine<TAIL_LANES, TAIL_CHAIN_LANES, TAIL_GROUPS>(sh, wsum, part,
-                                                          out, nw, R);
+  tail_combine<TAIL_LANES, TAIL_CHAIN_LANES, TAIL_GROUPS, 4>(sh, wsum, part,
+                                                             out, nw, R);
 }
 
 // acc [B][nw][S][16] -> part [B][nw][R][16] (scratch) -> out [B][16]

@@ -84,8 +84,8 @@ def lib():
         so.vmpc_cu_bn2_bexp.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp, vp]
         so.vmpc_cu_bn2_bexp_resident.argtypes = []
         so.vmpc_cu_bn2_fold_norm.argtypes = [vp, vp, vp, vp, ci, vp, ci, vp]
-        so.vmpc_cu_bucket_accum.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci,
-                                            ci, ci, ci, ci, vp]
+        so.vmpc_cu_bucket_accum.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
+                                            ci, ci, ci, vp]
         so.vmpc_cu_bucket_reduce.argtypes = [vp, vp, vp, ci, ci, vp]
         so.vmpc_cu_bexp_norm.argtypes = [vp, vp, ci, ci, vp, vp]
         so.vmpc_cu_mont_add.argtypes = [vp] * 12 + [ci, vp]

@@ -5,14 +5,19 @@ recoding (``_scalar_digits_signed8``), the bucket layout
 (``_bucket_layout``), ``msm`` and ``register``.  Each point costs one add
 per nonzero window digit (32 per point at full width) instead of the
 windowed MSM's table and per-window selection; the points are gathered
-into (window, bucket) columns by a precomputed permutation.  The device
-work is two kernels hand-written in CUDA:
+into (window, bucket) columns by a compact layout: the nonzero digits'
+point indices, sorted by column, and the columns' offsets
+(:func:`compact_layout`).  The device work is two kernels hand-written in
+CUDA:
 
 =====  ===================  ==============================================
 K13    bucket_accumulate    (window, bucket) column sums of the gathered,
-                            sign-flipped points (B6, ``csrc/bucket_accum.cu``)
+                            sign-flipped points, the same number of
+                            entries a thread, crossing columns combined by
+                            a tree (B6, ``csrc/bucket_accum.cu``)
 K14    bucket_reduce        per window sum_b (b+1) B_b as a suffix scan and
-                            a lane sum, Horner x 2^8, normalize (B7,
+                            a lane sum on lane groups, then K2's
+                            combination with 8-bit windows, normalize (B7,
                             ``csrc/bucket_reduce.cu``)
 =====  ===================  ==============================================
 
@@ -20,7 +25,10 @@ Each wrapper launches its kernel for a CUDA tensor and counts the launch
 in ``msm_cuda.LAUNCHES``; for a CPU tensor it runs the plain PyTorch
 version beside it (:func:`bucket_accumulate_plain`,
 :func:`bucket_reduce_plain`).  The layout is tensor code that runs where
-its digits lie, so on the card the permutation never crosses the bus.
+its digits lie, so on the card the entry list never crosses the bus.
+:func:`bucket_layout`, the JAX package's padded ``[nw, D, lanes]`` form,
+stays for the tests that hold the recoding against the JAX package; no
+MSM builds it.
 
 As in the JAX package the backend is opt-in: ``enable_gpu()`` does not
 install it, :func:`register` does, for synchronous MSMs only.
@@ -39,7 +47,9 @@ from . import msm_cuda as mc
 WINDOW8 = 8
 NW8 = 32  # 256 / 8
 LANES = 128  # bucket magnitudes 1..128
-SEG = 64  # K13: depth rows one (window, bucket, segment) thread sums
+ACCUM_ENTRIES = 64  # K13: entries of the flat list one thread sums
+_SIGN = -(1 << 31)  # an entry's top bit: its digit is negative
+_INDEX = (1 << 31) - 1
 
 
 # ---------------------------------------------------------------------------
@@ -156,6 +166,40 @@ def bucket_layout(digits, dt: int, lanes: int = LANES):
     return perm, sgn, D
 
 
+def compact_layout(digits, lanes: int = LANES):
+    """Signed digits [NW, n] (array or tensor) -> (entries, offsets, count)
+    on the digits' device, the layout K13 reads.
+
+    ``entries`` int32 [count]: for each window (most significant first)
+    the indices of the points whose digit is nonzero, in (bucket, index)
+    order (bucket b holds magnitude b + 1; a stable sort), an index with
+    its top bit set (the entry negative) where the digit is negative.
+    ``offsets`` int32 [NW * lanes + 1]: column c = w * lanes + b holds the
+    entries offsets[c] .. offsets[c + 1] - 1.  ``count``: the number of
+    nonzero digits.  Expanded to the padded form it is, element for
+    element, :func:`bucket_layout`'s (the JAX package's
+    ``_bucket_layout``) without its padding: no array is sized by the
+    deepest column.  Tensor code: the stable sort and ``searchsorted`` of
+    :func:`bucket_layout`, then one boolean selection."""
+    d = torch.as_tensor(digits).to(torch.int32)
+    nw, n = d.shape
+    dev = d.device
+    mags = d.abs()
+    if n and int(mags.max()) > lanes:
+        raise ValueError("digit magnitude exceeds the bucket range")
+    ms, order_idx = torch.sort(mags, dim=1, stable=True)  # [nw, n]
+    # each magnitude's first index in the sorted rows
+    vals = torch.arange(1, lanes + 2, dtype=ms.dtype, device=dev)
+    bounds = torch.searchsorted(ms, vals.expand(nw, -1).contiguous())
+    offsets = torch.zeros(nw * lanes + 1, dtype=torch.int32, device=dev)
+    offsets[1:] = torch.cumsum((bounds[:, 1:] - bounds[:, :-1]).reshape(-1),
+                               0)
+    idx = order_idx.to(torch.int32)
+    neg = torch.gather(d, 1, order_idx) < 0
+    entries = torch.where(neg, idx | _SIGN, idx)[ms > 0]
+    return entries, offsets, entries.numel()
+
+
 def trim_windows(digits):
     """Drop the all-zero leading (most significant) windows of digits
     [NW8, n] (array or tensor): the exact window count, at least 1 (the
@@ -170,45 +214,58 @@ def trim_windows(digits):
 # ---------------------------------------------------------------------------
 
 
-def _check_layout(perm: torch.Tensor, sgn: torch.Tensor):
-    for t, name in ((perm, "perm"), (sgn, "sgn")):
-        if t.dtype != torch.int32 or t.dim() != 3:
-            raise ValueError(f"{name}: expected int32 [nw, D, lanes], got "
-                             f"{t.dtype} {tuple(t.shape)}")
+def _check_layout(entries: torch.Tensor, offsets: torch.Tensor, lanes: int,
+                  n: int):
+    """The compact layout's types and shapes, then (one read from the
+    device) offsets monotone from 0 to the entry count and every entry's
+    index below n."""
+    for t, name in ((entries, "entries"), (offsets, "offsets")):
+        if t.dtype != torch.int32 or t.dim() != 1:
+            raise ValueError(f"{name}: expected int32 [m], got {t.dtype} "
+                             f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: must be contiguous")
-    if perm.shape != sgn.shape:
-        raise ValueError("perm and sgn differ in shape")
-    if not 0 < perm.shape[2] <= LANES:
-        raise ValueError(f"{perm.shape[2]} buckets a window, not 1..{LANES}")
+    if not 0 < lanes <= LANES:
+        raise ValueError(f"{lanes} buckets a window, not 1..{LANES}")
+    cols = offsets.numel() - 1
+    if cols < lanes or cols % lanes:
+        raise ValueError(f"offsets: {cols + 1} entries, not nw * {lanes} + 1")
+    start, end, down, index = torch.stack([
+        offsets[0] != 0, offsets[-1] != entries.numel(),
+        (offsets[1:] < offsets[:-1]).any(),
+        ((entries & _INDEX) >= n).any()]).tolist()
+    if start or end or down:
+        raise ValueError("offsets: not monotone from 0 to the entry count")
+    if index:
+        raise ValueError("entries index past the points")
 
 
-def bucket_accumulate(points: torch.Tensor, perm: torch.Tensor,
-                      sgn: torch.Tensor) -> torch.Tensor:
-    """K13: bucket sums [nw, lanes, 16] (extended rows, not normalized):
-    column (w, b) adds the points perm[w, :, b] (negated where sgn is 1,
-    skipped where perm is -1).  points [n, 16] rows.  CPU:
+def bucket_accumulate(points: torch.Tensor, entries: torch.Tensor,
+                      offsets: torch.Tensor, lanes: int = LANES
+                      ) -> torch.Tensor:
+    """K13: bucket sums [nw, lanes, 16] (extended rows, not normalized) over
+    the compact layout (:func:`compact_layout`; nw = (offsets.numel() - 1)
+    / lanes): column c adds the points of its entries, negated where an
+    entry is negative.  points [n, 16] rows.  CPU:
     :func:`bucket_accumulate_plain`."""
     mc._check_rows(points, "points", 2)
-    _check_layout(perm, sgn)
-    if perm.numel() and int(perm.max()) >= points.shape[0]:
-        raise ValueError("perm indexes past the points")
-    if mc._same_device(points, perm, sgn).type == "cpu":
-        return bucket_accumulate_plain(points, perm, sgn)
+    _check_layout(entries, offsets, lanes, points.shape[0])
+    if mc._same_device(points, entries, offsets).type == "cpu":
+        return bucket_accumulate_plain(points, entries, offsets, lanes)
     from . import _cuda_build as cb
 
     n = points.shape[0]
-    nw, D, lanes = perm.shape
-    nseg = -(-D // SEG)
+    count = entries.numel()
+    nw = (offsets.numel() - 1) // lanes
     dev = points.device
     pre = torch.empty_like(points)
-    part = torch.empty((nseg, nw, lanes, 16), dtype=torch.int64, device=dev)
-    used = torch.empty((nseg, nw, lanes), dtype=torch.uint8, device=dev)
+    part = torch.empty((-(-count // ACCUM_ENTRIES), 2, 16), dtype=torch.int64,
+                       device=dev)
     out = torch.empty((nw, lanes, 16), dtype=torch.int64, device=dev)
     cb.check(cb.lib().vmpc_cu_bucket_accum(
-        points.data_ptr(), pre.data_ptr(), perm.data_ptr(), sgn.data_ptr(),
-        part.data_ptr(), used.data_ptr(), out.data_ptr(), n, nw, D, lanes,
-        SEG, mc._stream(points)), "bucket_accumulate")
+        points.data_ptr(), pre.data_ptr(), entries.data_ptr(),
+        offsets.data_ptr(), part.data_ptr(), out.data_ptr(), n, nw, lanes,
+        count, ACCUM_ENTRIES, mc._stream(points)), "bucket_accumulate")
     mc.LAUNCHES["bucket_accumulate"] += 1
     return out
 
@@ -220,7 +277,7 @@ def bucket_reduce(buckets: torch.Tensor) -> torch.Tensor:
     :func:`bucket_reduce_plain`."""
     mc._check_rows(buckets, "buckets", 3)
     nw, lanes, _ = buckets.shape
-    if not 0 < lanes <= LANES or not nw:
+    if not 0 < lanes <= LANES or not 0 < nw <= NW8:
         raise ValueError(f"{nw} windows of {lanes} buckets")
     if mc._same_device(buckets).type == "cpu":
         return bucket_reduce_plain(buckets)
@@ -241,23 +298,22 @@ def bucket_reduce(buckets: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def bucket_accumulate_plain(points: torch.Tensor, perm: torch.Tensor,
-                            sgn: torch.Tensor) -> torch.Tensor:
-    """Plain version of K13: the real (non-padding) entries of every column
-    in column order, each as its point's precomputed form, sign-flipped and
-    made extended by a mixed add to the identity; then a segmented tree sum,
-    each round adding neighbours within a column, until one point a column
-    is left.  Work follows the entries, not the padded rectangle."""
-    nw, D, lanes = perm.shape
-    cols = nw * lanes
+def bucket_accumulate_plain(points: torch.Tensor, entries: torch.Tensor,
+                            offsets: torch.Tensor, lanes: int = LANES
+                            ) -> torch.Tensor:
+    """Plain version of K13: every entry (already in column order) as its
+    point's precomputed form, sign-flipped and made extended by a mixed add
+    to the identity; then a segmented tree sum, each round adding
+    neighbours within a column, until one point a column is left; empty
+    columns the identity."""
+    cols = offsets.numel() - 1
+    nw = cols // lanes
     dev = points.device
-    pm = perm.permute(0, 2, 1).reshape(cols, D)
-    real = pm >= 0
-    col, _row = torch.nonzero(real, as_tuple=True)  # sorted by column
-    idx = pm[real].long()
-    neg = sgn.permute(0, 2, 1).reshape(cols, D)[real] != 0
-    cnt = real.sum(1)
-    rank = torch.arange(col.numel(), device=dev) - (cnt.cumsum(0) - cnt)[col]
+    cnt = (offsets[1:] - offsets[:-1]).long()
+    col = torch.repeat_interleave(torch.arange(cols, device=dev), cnt)
+    idx = (entries & _INDEX).long()
+    neg = entries < 0
+    rank = torch.arange(col.numel(), device=dev) - offsets[:-1].long()[col]
     pre = ced.to_pre(ced.split_rows(points))
     x = _blocked(lambda i: ced.add_pre(
         ced.identity(i.shape, dev),
@@ -324,28 +380,31 @@ def bucket_reduce_plain(buckets: torch.Tensor) -> torch.Tensor:
 
 def layout_for(scalars, dt: int = 8, lanes: int = LANES, device=None):
     """The scalars' u64 rows (one C pass on the host), then the recoding,
-    the window trim and the layout on ``device`` (by default the one
-    ``enable_gpu`` chose; before it this raises): (perm, sgn), or None
-    when every scalar is 0 mod the order."""
+    the window trim and the compact layout on ``device`` (by default the
+    one ``enable_gpu`` chose; before it this raises): (entries, offsets,
+    count) of :func:`compact_layout`, or None when every scalar is 0 mod
+    the order.  ``dt`` is the JAX package's depth tile; the compact layout
+    has no depth to round, so it is not used."""
     rows = _u64_rows(scalars, ELL, mc.current_device(device))
     digits = trim_windows(digits_signed8(rows))
     if not bool(digits.any()):
         return None
-    perm, sgn, _D = bucket_layout(digits, dt, lanes)
-    return perm, sgn
+    return compact_layout(digits, lanes)
 
 
 def msm(points, scalars, dt: int = 8, lanes: int = LANES) -> EdwardsPoint:
     """prod points[i] ** scalars[i] (Ed25519) through K13 + K14, on the
     device ``enable_gpu`` chose (before it this raises).  ``dt`` and
-    ``lanes`` are the JAX package's parameters: on the GPU ``dt`` only
-    rounds the layout's depth up (padding rows that K13 skips), and
-    ``lanes`` below 128 only serves the tests' small layouts."""
+    ``lanes`` are the JAX package's parameters: the compact layout does not
+    use ``dt``, and ``lanes`` below 128 only serves the tests' small
+    layouts."""
     assert len(points) == len(scalars)
     lay = layout_for(scalars, dt, lanes)
     if lay is None:
         return EdwardsPoint.identity
-    buckets = bucket_accumulate(mc._device_points(points), *lay)
+    entries, offsets, _count = lay
+    buckets = bucket_accumulate(mc._device_points(points), entries, offsets,
+                                lanes)
     return ced.decode_rows(bucket_reduce(buckets))[0]
 
 
@@ -354,7 +413,9 @@ def register(min_batch: int = 4096, dt: int = 8):
     ``min_batch`` points; smaller ones stay on the backend installed before
     (after ``enable_gpu()``, K1 + K2 tiered with the C++ tier).  The async
     MSM backend is left as it is, as in the JAX package.  The MSMs run on
-    the device ``enable_gpu`` chose: before it this raises."""
+    the device ``enable_gpu`` chose: before it this raises.  ``dt`` is the
+    JAX package's depth tile, passed on to :func:`msm`; the compact layout
+    does not use it."""
     mc.current_device()
     windowed = dispatch._MSM_BACKENDS.get(EdwardsPoint)
 
