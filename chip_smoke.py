@@ -10,8 +10,7 @@ Phases (each one fatal; any failure exits non-zero and prints no result):
 1. the card's name and power limit (nvidia-smi);
 2. build the kernels (nvcc, ptxas's registers per thread of every kernel,
    and one line with the registers, stack, spills and shared memory of the
-   launches of K1, K2, K3, K4, K5, K6, K8, K9, K10, K11, K13 and K14) and
-   the C++ host tier (g++), with their seconds;
+   launches of K1-K14) and the C++ host tier (g++), with their seconds;
 3. hold every kernel against its plain PyTorch version on the same inputs
    on the card: K1 + K2 (MSM), K3 (fold), K4 (comb) over Ed25519 and
    K5 + K6 (MSM), K7 (fold), K8 (comb) over BN256 G1 at n in {1, 300,
@@ -28,19 +27,25 @@ Phases (each one fatal; any failure exits non-zero and prints no result):
    128 and -128, identities and points with Z != 1; K3 also at the
    challenges 0, 1, 8, 9, l - 1 and one with runs of zero windows (every n
    of these below its thread count G, 2^17 a ragged 2.6 G, and there too
-   against the C++ tier), K2 and K6 also on accumulators made here at B in
-   {1, 2} or {1, 3}, nw in {1, 2, 8, 64}, S not a multiple of its chunk
-   count R and a window whose accumulators are all the identity (against
-   the C++ tier's MSM of them by 16^(nw-1-w); K2 also where every window
-   sums to the identity), K10 likewise on twist accumulators, and K9 with
-   identity inputs, a slice of zero digits and a point of zero digits
-   (accumulators normalized against the plain version, K9 + K10 against
-   the C++ tier); then each kernel alone at the shapes its path
-   gives it, timed with CUDA events beside its plain version and its
-   bound (K4 at 2^18 - 1 exponents, a ragged count of its thread count G,
-   with thread 0's group all exponent 0, also against the C++ tier, and
-   its comb table's uncached build); the tolerance is exact equality of
-   canonical values;
+   against the C++ tier), K7 and K12 at those challenges for the BN order
+   and 17 * 2^251 (a NAF digit past the order's top bit), with identity
+   gl and gr at chosen indices, an element whose result is the identity
+   and thread 0's group all identities (fold_inputs), against the C++
+   tier's batch-exp of the results' exponents, its MSM of (gl_i, gr_i) by
+   (c, 1) and the host law (a random challenge), and at 2^17 (no
+   multiple of G) against the batch-exp, K2 and K6 also on accumulators
+   made here at B in {1, 2} or {1, 3}, nw in {1, 2, 8, 64}, S not a
+   multiple of its chunk count R and a window whose accumulators are all
+   the identity (against the C++ tier's MSM of them by 16^(nw-1-w); K2
+   also where every window sums to the identity), K10 likewise on twist
+   accumulators, and K9 with identity inputs, a slice of zero digits and
+   a point of zero digits (accumulators normalized against the plain
+   version, K9 + K10 against the C++ tier); then each kernel alone at the
+   shapes its path gives it, timed with CUDA events beside its plain
+   version and its bound (K4 at 2^18 - 1 exponents, a ragged count of its
+   thread count G, with thread 0's group all exponent 0, also against the
+   C++ tier, and its comb table's uncached build); the tolerance is exact
+   equality of canonical values;
 4. the Ed25519 MSM at 2^16 against the port's C++ tier
    (native.ed_msm_arr), and the Ed25519 MSM and comb against native.ed_msm
    / ed_batch_exp at the Ed25519 tier sizes (the sweep behind
@@ -408,27 +413,27 @@ def ptxas_usage(text: str) -> dict:
     return {k: tuple(v) for k, v in out.items() if len(v) == 5}
 
 
-# the launches of K1, K2, K3, K4, K5, K6, K8, K9, K10, K11, K13 and K14
-# (each kernel's launches in order)
+# the launches of K1-K14 (each kernel's launches in order)
 USAGE_KERNELS = (("K1", ("msm_table_kernel", "msm_accum_kernel")),
                  ("K2", ("msm_reduce_kernel", "msm_combine_kernel")),
                  ("K3", ("fold_norm_kernel",)),
                  ("K4", ("comb_norm_kernel",)),
                  ("K5", ("bn_table_kernel", "bn_msm_accum_kernel")),
                  ("K6", ("bn_msm_reduce_kernel", "bn_msm_combine_kernel")),
+                 ("K7", ("bn_fold_norm_kernel",)),
                  ("K8", ("bn_encode_affine_kernel", "bn_comb_norm_kernel")),
                  ("K9", ("bn2_table_kernel", "bn2_table_norm_kernel",
                          "bn2_msm_accum_kernel")),
                  ("K10", ("bn2_msm_reduce_kernel", "bn2_msm_combine_kernel")),
                  ("K11", ("bn2_encode_affine_kernel", "bn2_bexp_kernel")),
+                 ("K12", ("bn2_fold_norm_kernel",)),
                  ("K13", ("bucket_pre_kernel", "bucket_accum_kernel",
                           "bucket_combine_kernel")),
                  ("K14", ("bucket_window_kernel", "bucket_tail_kernel")))
 
 
 def log_accum_usage(usage: dict):
-    """The ptxas line of the launches of K1, K2, K3, K4, K5, K6, K8, K9,
-    K10, K11, K13 and K14."""
+    """The ptxas line of the launches of K1-K14."""
     parts = []
     for label, keys in USAGE_KERNELS:
         for key in keys:
@@ -499,13 +504,6 @@ def edge_scalars(ell: int):
     return [0, 1, ell // 2 - 1, ell // 2, ell // 2 + 1, ell - 2, ell - 1]
 
 
-def fold_challenges(ell: int) -> list:
-    """K3's edge challenges: 0, 1, 8 (one nonzero NAF digit), 9, l - 1,
-    and one with runs of zeros (the nibble 7 in every third 4-bit window
-    from window 20, least significant first)."""
-    return [0, 1, 8, 9, ell - 1, sum(7 << (4 * w) for w in range(20, 63, 3))]
-
-
 def comb_exponents(n: int, G: int, rng, order: int) -> list:
     """n exponents for a comb kernel (K4, K8, K11) that runs G threads: the
     edge scalars (0 among them), then random ones; exponent 0 also at index 1
@@ -567,7 +565,7 @@ def check_small(torch, native, mc, ced, rng):
 
         gr = random_points(native, n, rng)
         gl_t, gr_t = pts, ced.from_reference_rows(gr, dev)
-        for c in fold_challenges(ELL) + [rng.randrange(ELL)]:
+        for c in [*mc.fold_challenges(ELL).values(), rng.randrange(ELL)]:
             cdig = mc.fold_digits(c)
             got = mc.fold_rows(gl_t, gr_t, cdig)
             plain = mc.fold_plain(gl_t, gr_t, cdig)
@@ -1400,15 +1398,20 @@ def entry_points(torch, native, mc, add, lm, rng):
 # ---------------------------------------------------------------------------
 
 
-def bn_points(native, n: int, rng, identity_at=(), rescale=True):
-    """n BN256 G1 points made by the C++ tier; with ``rescale`` every
-    third one in jacobian coordinates with Z != 1 (identities where
+def bn_points(native, n: int, rng, identity_at=(), rescale=True,
+              exps=None):
+    """n BN256 G1 points made by the C++ tier, ``exps`` (random ones by
+    default) times the generator; with ``rescale`` every third one that is
+    not the identity in jacobian coordinates with Z != 1 (identities where
     asked)."""
     from verifiable_mpc_tpu_torch.groups.bn256 import ORDER, BNPoint
 
-    pts = native.bn_batch_exp(BNPoint.generator,
-                              [rng.randrange(1, ORDER) for _ in range(n)])
+    if exps is None:
+        exps = [rng.randrange(1, ORDER) for _ in range(n)]
+    pts = native.bn_batch_exp(BNPoint.generator, exps)
     for i in range(1, n, 3) if rescale else ():
+        if exps[i] % ORDER == 0:
+            continue
         lam, q = rng.randrange(2, ORDER), pts[i].normalize()
         pts[i] = BNPoint(int(q.x) * lam**2, int(q.y) * lam**3, lam,
                          check=False)
@@ -1424,6 +1427,34 @@ def bn_host_rows(native, points) -> np.ndarray:
 
     return np.ascontiguousarray(
         native._bn_pts_to_u64(BNPoint.batch_normalize(list(points))))
+
+
+def fold_inputs(native, points, n: int, G: int, c: int, rng, order: int):
+    """gl, gr for a BN or twist fold (``points``: bn_points or bn2_points)
+    of n elements by G threads with the challenge c, and the exponents e
+    with gl_i^c * gr_i = e_i times the generator: gl_i = a_i and gr_i = b_i
+    times it, e_i = a_i c + b_i, so one batch-exp of the C++ tier gives
+    every result.  For n > 1 every element of thread 0's group (0, G, 2G,
+    ...) has identity gl and gr, gl is the identity at index 2 and gr at 5,
+    and element 3's result is the identity (b_3 = -a_3 c)."""
+    a = [rng.randrange(1, order) for _ in range(n)]
+    b = [rng.randrange(1, order) for _ in range(n)]
+    for i in range(0, n, G) if n > 1 else ():
+        a[i] = b[i] = 0
+    for x, i in ((a, 2), (b, 5)):
+        if i < n:
+            x[i] = 0
+    if n > 3:
+        b[3] = -a[3] * c % order
+    return (points(native, n, rng, exps=a), points(native, n, rng, exps=b),
+            [(x * c + y) % order for x, y in zip(a, b)])
+
+
+def log_fold_groups(name: str, n: int, G: int):
+    log(f"   {name} at n={n}: {G} threads, normalization groups of "
+        f"{n // G}-{-(-n // G)} elements (n mod G = {n % G}), thread 0's "
+        "group all identities, identity gl at 2 and gr at 5, element 3 "
+        "summing to the identity")
 
 
 def check_small_bn(torch, native, mc, mb, cbn, rng):
@@ -1447,16 +1478,27 @@ def check_small_bn(torch, native, mc, mb, cbn, rng):
         host = bn_host_rows(native, [native.bn_msm(pts, sc)])
         assert np.array_equal(cbn.to_rows(got), host), f"K5+K6 != C++ n={n}"
 
-        gr = bn_points(native, n, rng, identity_at=(0, 7))
-        c = rng.randrange(ORDER)
-        cdig = mc.scalar_digits([c], ORDER)[:, 0]
-        gr_t = cbn.encode_points(gr, dev)
-        got = mb.fold_rows(pts_t, gr_t, cdig)
-        plain = mb.fold_plain(pts_t, gr_t, cdig.astype(np.uint8))
-        assert torch.equal(got, plain), f"K7 != plain at n={n}"
+        G7 = mc.fold_threads(n, dev, "bn_fold")
+        for c in [*mc.fold_challenges(ORDER).values(),
+                  rng.randrange(ORDER)]:
+            gl, gr, e = fold_inputs(native, bn_points, n, G7, c, rng, ORDER)
+            gl_t, gr_t = (cbn.encode_points(p, dev) for p in (gl, gr))
+            cdig = mc.fold_digits(c, ORDER)
+            got = mb.fold_rows(gl_t, gr_t, cdig)
+            plain = mb.fold_plain(gl_t, gr_t, cdig)
+            assert torch.equal(got, plain), f"K7 != plain at n={n}, c={c}"
+            host = bn_host_rows(native, native.bn_batch_exp(
+                BNPoint.generator, e))
+            assert np.array_equal(cbn.to_rows(got), host), \
+                f"K7 != C++ at n={n}, c={c}"
+        # the last, random challenge element by element too: the C++
+        # tier's MSM of (gl_i, gr_i) by (c, 1), and the host law
         host = bn_host_rows(native, [native.bn_msm([a, b], [c, 1])
-                                     for a, b in zip(pts, gr)])
+                                     for a, b in zip(gl, gr)])
         assert np.array_equal(cbn.to_rows(got), host), f"K7 != C++ n={n}"
+        law = bn_host_rows(native, [a ** c * b for a, b in zip(gl[:8],
+                                                              gr[:8])])
+        assert np.array_equal(cbn.to_rows(got)[:8], law), f"K7 != law n={n}"
 
         exps = comb_exponents(n, mb.comb_threads(n, dev), rng, ORDER)
         pk8, nw8 = mc.packed_digits(native._scalars_to_u64(exps, ORDER),
@@ -1470,8 +1512,9 @@ def check_small_bn(torch, native, mc, mb, cbn, rng):
             host = bn_host_rows(native, native.bn_batch_exp(base, exps))
             assert np.array_equal(cbn.to_rows(got), host), f"K8 != C++ n={n}"
         torch.cuda.synchronize()
-        log(f"   n={n}: K5+K6, K7, K8 (also with an identity base) equal "
-            "their plain versions and the C++ tier")
+        log(f"   n={n}: K5+K6, K7 (G = {G7}, at the edge challenges too), "
+            "K8 (also with an identity base) equal their plain versions and "
+            "the C++ tier")
 
 
 # K6's cases on accumulators made here: (B, nw, S, the window whose
@@ -1551,23 +1594,28 @@ def check_main_shapes_bn(torch, native, mc, mb, cbn, rng, n: int):
         muls=(nw * (S - 1) * BN_ADD + (nw - 1) * 4 * BN_DBL + nw * BN_ADD
               + BN_NORM_EACH + BN_INV))
 
-    gl, gr = g[:n], g[n:]
+    # K7: a fold of n elements (a ragged count of its thread count G),
+    # with identities and a sum of the identity (fold_inputs), against the
+    # plain version and the C++ tier's batch-exp of the exponents
     c = rng.randrange(ORDER)
-    cdig = mc.scalar_digits([c], ORDER)[:, 0]
+    G7 = mc.fold_threads(n, dev, "bn_fold")
+    gl_p, gr_p, e = fold_inputs(native, bn_points, n, G7, c, rng, ORDER)
+    gl, gr = (cbn.encode_points(p, dev) for p in (gl_p, gr_p))
+    cdig = mc.fold_digits(c, ORDER)
     got = mb.fold_rows(gl, gr, cdig)
-    plain, k7_plain = cuda_once(
-        torch, lambda: mb.fold_plain(gl, gr, cdig.astype(np.uint8)))
+    plain, k7_plain = cuda_once(torch, lambda: mb.fold_plain(gl, gr, cdig))
     k7_err = max_abs_err(torch, got, plain)
     assert k7_err == 0.0, "K7 differs from the plain version"
-    nzc = int((cdig != 0).sum())
-    first = int(np.flatnonzero(cdig)[0])
-    k7_muls = n * (2 * BN_ENC + max(int(cdig.max()) - 1, 0) * BN_ADD
-                   + (len(cdig) - 1 - first) * 4 * BN_DBL + nzc * BN_ADD
-                   + BN_ADD + BN_NORM_EACH) + BN_INV
+    host = bn_host_rows(native, native.bn_batch_exp(BNPoint.generator, e))
+    assert np.array_equal(cbn.to_rows(got), host), "K7 != C++ at the shape"
+    log_fold_groups("K7", n, G7)
+    k7_muls, old_muls = fold_muls(mc, c, ORDER, n, BN_ENC, BN_ADD, BN_DBL,
+                                  BN_NORM_EACH, BN_INV)
+    log_fold_bound(torch, "K7", n, 3 * n * 96, k7_muls, old_muls)
     stats["bn_fold"] = dict(
         err=k7_err, ms=cuda_ms(torch, lambda: mb.fold_rows(gl, gr, cdig)),
-        plain_ms=k7_plain, shape=f"n={n} nw=64", bytes=3 * n * 96,
-        muls=k7_muls)
+        plain_ms=k7_plain, shape=f"n={n} digits={len(cdig)} G={G7}",
+        bytes=3 * n * 96, muls=k7_muls)
 
     G8 = mb.comb_threads(n, dev)
     exps = comb_exponents(n, G8, rng, ORDER)
@@ -1602,6 +1650,38 @@ def check_main_shapes_bn(torch, native, mc, mb, cbn, rng, n: int):
         st["products"] = st["muls"] / BN_M
         log_stat(name, st, "32-bit multiplies")
     return stats
+
+
+def fold_muls(mc, c: int, order: int, n: int, enc: int, add: int, dbl: int,
+              norm_each: int, inv: int) -> tuple:
+    """32-bit multiplies of a BN or twist fold of n elements by c (the
+    curve's costs of an encoding, a complete add, a doubling, a point's
+    share of a batch normalization and an inversion): (by the width-5 NAF,
+    as K7 and K12 compute it now; by unsigned 4-bit windows from the
+    identity with a 0..15 table, as counted before).  Per element the NAF
+    needs both encodings, the odd multiples 1..15 (a doubling and 7 adds),
+    a doubling a digit after the first nonzero one, an add a later nonzero
+    digit and the add of gr, then its share of the normalization; one
+    inversion for the call."""
+    d = mc.fold_digits(c, order)
+    nz = np.flatnonzero(d)
+    new = n * (2 * enc + dbl + 7 * add + (len(d) - 1 - int(nz[0])) * dbl
+               + (len(nz) - 1) * add + add + norm_each) + inv
+    w = mc.scalar_digits([c], order)[:, 0].astype(np.int64)
+    first = int(np.flatnonzero(w)[0])
+    old = n * (2 * enc + max(int(w.max()) - 1, 0) * add
+               + (len(w) - 1 - first) * 4 * dbl + int((w != 0).sum()) * add
+               + add + norm_each) + inv
+    return new, old
+
+
+def log_fold_bound(torch, name: str, n: int, nbytes: int, muls: int,
+                   old: int):
+    log(f"   {name}'s bound recounted to a width-5 NAF over odd multiples "
+        f"and one inversion: {muls / n / BN_M:.1f} products an element, "
+        f"{bound(torch, nbytes, muls, 1)[0]:.4f} ms (unsigned windows and "
+        f"a 0..15 table, as counted before: {old / n / BN_M:.1f}, "
+        f"{bound(torch, nbytes, old, 1)[0]:.4f} ms)")
 
 
 def _spread(ts):
@@ -1661,15 +1741,21 @@ def bn_bench(torch, native, mc, mb, rng):
 # ---------------------------------------------------------------------------
 
 
-def bn2_points(native, n: int, rng, identity_at=(), rescale=True):
-    """n twist points made by the C++ tier; with ``rescale`` every third
-    one in jacobian coordinates with Z != 1 (identities where asked)."""
+def bn2_points(native, n: int, rng, identity_at=(), rescale=True,
+               exps=None):
+    """n twist points made by the C++ tier, ``exps`` (random ones by
+    default) times the generator; with ``rescale`` every third one that is
+    not the identity in jacobian coordinates with Z != 1 (identities where
+    asked)."""
     from verifiable_mpc_tpu_torch.groups.bn256 import (ORDER, P, BNTwistPoint,
                                                        GFp2)
 
-    pts = native.bn2_batch_exp(BNTwistPoint.generator,
-                               [rng.randrange(1, ORDER) for _ in range(n)])
+    if exps is None:
+        exps = [rng.randrange(1, ORDER) for _ in range(n)]
+    pts = native.bn2_batch_exp(BNTwistPoint.generator, exps)
     for i in range(1, n, 3) if rescale else ():
+        if exps[i] % ORDER == 0:
+            continue
         lam = GFp2(rng.randrange(2, P), rng.randrange(P))
         q = pts[i].normalize()
         pts[i] = BNTwistPoint(q.x * lam * lam, q.y * lam * lam * lam, lam,
@@ -1728,22 +1814,32 @@ def check_small_bn2(torch, native, mc, mb2, cb2, rng):
                      host_err(torch, got, bn2_host_rows(
                          native, native.bn2_batch_exp(base, exps)))]
 
-        gr = bn2_points(native, n, rng, identity_at=(0, 7))
-        c = rng.randrange(ORDER)
-        cdig = mc.scalar_digits([c], ORDER)[:, 0]
-        gr_t = cb2.encode_points(gr, dev)
-        got = mb2.fold_rows(pts_t, gr_t, cdig)
-        host = [native.bn2_msm([a, b], [c, 1]) for a, b in zip(pts, gr)]
-        law = [a ** c * b for a, b in zip(pts[:8], gr[:8])]
-        errs += [max_abs_err(torch, got, mb2.fold_plain(
-                     pts_t, gr_t, cdig.astype(np.uint8))),
-                 host_err(torch, got, bn2_host_rows(native, host)),
-                 host_err(torch, got[: len(law)], bn2_host_rows(native, law))]
+        G12 = mc.fold_threads(n, dev, "bn2_fold")
+        fold_errs = [0.0, 0.0]
+        for c in [*mc.fold_challenges(ORDER).values(),
+                  rng.randrange(ORDER)]:
+            gl, gr, e = fold_inputs(native, bn2_points, n, G12, c, rng, ORDER)
+            gl_t, gr_t = (cb2.encode_points(p, dev) for p in (gl, gr))
+            cdig = mc.fold_digits(c, ORDER)
+            got = mb2.fold_rows(gl_t, gr_t, cdig)
+            fold_errs = [max(fold_errs[0], max_abs_err(
+                             torch, got, mb2.fold_plain(gl_t, gr_t, cdig))),
+                         max(fold_errs[1], host_err(torch, got, bn2_host_rows(
+                             native, native.bn2_batch_exp(
+                                 BNTwistPoint.generator, e))))]
+        # the last, random challenge element by element too: the C++
+        # tier's MSM of (gl_i, gr_i) by (c, 1), and the host law
+        host = [native.bn2_msm([a, b], [c, 1]) for a, b in zip(gl, gr)]
+        law = [a ** c * b for a, b in zip(gl[:8], gr[:8])]
+        errs += fold_errs + [
+            host_err(torch, got, bn2_host_rows(native, host)),
+            host_err(torch, got[: len(law)], bn2_host_rows(native, law))]
         torch.cuda.synchronize()
         log(f"   n={n}: max_abs_err K9+K10 plain {errs[0]} c++ {errs[1]}; "
             f"K11 plain {errs[2]} c++ {errs[3]}, identity base plain "
-            f"{errs[4]} c++ {errs[5]}; K12 plain {errs[6]} c++ {errs[7]} "
-            f"host law {errs[8]}")
+            f"{errs[4]} c++ {errs[5]}; K12 (G = {G12}, the edge challenges "
+            f"and a random one) plain {errs[6]} c++ batch-exp {errs[7]}, "
+            f"the random one c++ msm {errs[8]} host law {errs[9]}")
         assert not any(errs), f"twist kernels differ at n={n}: {errs}"
 
 
@@ -1906,22 +2002,26 @@ def check_main_shapes_bn2(torch, native, mc, mb2, cb2, rng, n: int):
         plain_ms=k11_plain, shape=f"n={n} nw={nw11}", bytes=k11_bytes,
         muls=comb_muls)
 
-    gl, gr = g[:n], g[n:]
+    # K12 as K7 in check_main_shapes_bn
     c = rng.randrange(ORDER)
-    cdig = mc.scalar_digits([c], ORDER)[:, 0]
+    G12 = mc.fold_threads(n, dev, "bn2_fold")
+    gl_p, gr_p, e = fold_inputs(native, bn2_points, n, G12, c, rng, ORDER)
+    gl, gr = (cb2.encode_points(p, dev) for p in (gl_p, gr_p))
+    cdig = mc.fold_digits(c, ORDER)
     got = mb2.fold_rows(gl, gr, cdig)
-    plain, k12_plain = cuda_once(
-        torch, lambda: mb2.fold_plain(gl, gr, cdig.astype(np.uint8)))
+    plain, k12_plain = cuda_once(torch, lambda: mb2.fold_plain(gl, gr, cdig))
     k12_err = max_abs_err(torch, got, plain)
     assert k12_err == 0.0, "K12 differs from the plain version"
-    nzc = int((cdig != 0).sum())
-    firstc = int(np.flatnonzero(cdig)[0])
+    assert host_err(torch, got, bn2_host_rows(native, native.bn2_batch_exp(
+        BNTwistPoint.generator, e))) == 0.0, "K12 != C++ at the shape"
+    log_fold_groups("K12", n, G12)
+    k12_muls, old_muls = fold_muls(mc, c, ORDER, n, BN2_ENC, BN2_ADD,
+                                   BN2_DBL, BN2_NORM_EACH, BN2_INV)
+    log_fold_bound(torch, "K12", n, 3 * n * 192, k12_muls, old_muls)
     stats["bn2_fold"] = dict(
         err=k12_err, ms=cuda_ms(torch, lambda: mb2.fold_rows(gl, gr, cdig)),
-        plain_ms=k12_plain, shape=f"n={n} nw=64", bytes=3 * n * 192,
-        muls=(n * (2 * BN2_ENC + max(int(cdig.max()) - 1, 0) * BN2_ADD
-                   + (len(cdig) - 1 - firstc) * 4 * BN2_DBL + nzc * BN2_ADD
-                   + BN2_ADD + BN2_NORM_EACH) + BN2_INV))
+        plain_ms=k12_plain, shape=f"n={n} digits={len(cdig)} G={G12}",
+        bytes=3 * n * 192, muls=k12_muls)
     for name, st in stats.items():
         st["bound_ms"], st["bound_by"] = bound(torch, st["bytes"], st["muls"],
                                                per_mul=1)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Design variants of the kernels K2, K3, K4, K6, K8, K9, K10, K11, K13 and
-K14, timed on the card against the committed kernels on the same inputs.
+"""Design variants of the kernels K2-K4 and K6-K14, timed on the card
+against the committed kernels on the same inputs.
 
     python3 chip_variants.py [--log2 17] [--reps 3] [--only NAME ...]
                              [--parent DIR]
@@ -8,8 +8,9 @@ K14, timed on the card against the committed kernels on the same inputs.
 A variant is a committed kernel source (``csrc/msm_tail.cu``,
 ``csrc/fold.cu``, ``csrc/comb.cu``, ``csrc/bn_msm_tail.cu``,
 ``csrc/bn2_bexp.cu``, ``csrc/bn_comb.cu``, ``csrc/bn2_msm_accum.cu``,
-``csrc/bn2_msm_tail.cu``, ``csrc/bucket_accum.cu`` or
-``csrc/bucket_reduce.cu``) with the few text edits listed in ``VARIANTS``
+``csrc/bn2_msm_tail.cu``, ``csrc/bucket_accum.cu``,
+``csrc/bucket_reduce.cu``, ``csrc/bn_fold.cu`` or ``csrc/bn2_fold.cu``)
+with the few text edits listed in ``VARIANTS``
 (a function's body copied from its header and edited counts as one, and
 so does a header's text put in place of its ``#include`` with edits),
 built alone with nvcc into a library of its own (under the kernels' build
@@ -23,12 +24,13 @@ Pinocchio path's MSM tail), 2^log2 exponents for K8 and K11 (the
 Pinocchio path's, the G1 or the twist generator's comb table), 2^log2
 twist points for K9 (the Pinocchio prove's twist MSM) and its
 accumulators for K10, 2^(log2+1) points and scalars for K13 (protocol 5's
-commitment at the default) and its bucket sums for K14.  The variants in
+commitment at the default) and its bucket sums for K14, 2^log2 elements
+for K7 and K12 (the Pinocchio path's size).  The variants in
 ``SPLITS`` run the committed K2, K6 or K10 with another chunk count R a
 window, the ``ENTRIES`` variants K13 with another count of entries a
 thread (its bucket sums compared normalized); the ``WAVES`` variants
-run the committed K9 with its
-normalization at another count of threads an SM; the ``POINTS`` variants
+run the committed K9 with its normalization, K4, K7 or K12 at another
+count of threads an SM; the ``POINTS`` variants
 run K9 with another count of points a thread, and K10 on its
 accumulators (K9 alone, K10 alone and both are timed; the MSM's rows must
 agree).  A variant in ``ONE_LIB`` also holds the committed design, and
@@ -39,10 +41,11 @@ best of ``--reps`` each).  The sources keep one design each; the
 alternatives that were measured against it live only here.  Prints the
 card line, ptxas's lines of the variants, one line per variant and, last,
 one JSON object with the times.  With ``--parent DIR`` it also times K2,
-K3, K4, K6, K9, K10, K13 and K14 of this checkout against those of the
-checkout at DIR (an earlier commit, unpacked there), each in a process of
-its own, in turns, and logs the peak device memory of the bucket MSM's
-layout and kernels at 2^18 points in each.
+K3, K4 and K6-K14 of this checkout against those of the checkout at DIR
+(an earlier commit, unpacked there), each in a process of its own, in
+turns, prints both checkouts' ptxas lines of K2, K4, K6, K7, K10, K12,
+K13 and K14, and logs the peak device memory of the bucket MSM's layout
+and kernels at 2^18 points in each.
 Imports neither jax nor the JAX package, and fails without a card.
 """
 
@@ -429,10 +432,10 @@ def k3_neg_copy():
              "          ge_add_pre(t, acc, q);\n")])
 
 
-# K3's thread count G: the wrapper's one wave of FOLD_SM_THREADS (256) an
-# SM replaced by n threads of one element each (an inversion an element),
-# or by one wave of ``per_sm`` threads an SM (0: all that the registers
-# allow, 384)
+# K3's thread count G: the wrapper's one wave of FOLD_SM_THREADS["fold"]
+# (256) an SM replaced by n threads of one element each (an inversion an
+# element), or by one wave of ``per_sm`` threads an SM (0: all that the
+# registers allow, 384)
 K3_PER_ELEMENT = ("  FoldDigits c;\n", "  FoldDigits c;\n  G = n;\n")
 
 
@@ -458,6 +461,166 @@ K3_MAX_L1 = ("  FoldDigits c;\n",
              "  cudaFuncSetAttribute(fold_norm_kernel, "
              "cudaFuncAttributePreferredSharedMemoryCarveout, 0);\n"
              "  FoldDigits c;\n")
+
+
+# K7 and K12 (csrc/bn_fold.cu, csrc/bn2_fold.cu) over the parent's
+# unsigned radix-16 windows with its 0..15 table (14 adds), from the first
+# nonzero window, with the committed group normalization; the entry point
+# recodes c from the NAF digits.  {p}: the curve's prefix (g1 or g2), {b}
+# the kernels' (bn or bn2), {row} a row's words, {bounds} the committed
+# kernel's __launch_bounds__ (K12's), so that its wave fits.
+BN_FOLD_RADIX16 = """
+struct Windows64 {{
+  uint8_t d[64];
+}};
+
+FE_FN void {b}_fold_group_radix16(const uint64_t *gl, const uint64_t *gr,
+                                  const uint8_t *cdig, int n, int g, int G,
+                                  uint64_t *pre, uint64_t *out) {{
+  int first = 0;
+  while (first < 64 && cdig[first] == 0) first++;
+  for (int i = g; i < n; i += G) {{
+    {p}p acc, t;
+    if (first < 64) {{
+      {p}p tbl[16];
+      {p}_identity(tbl[0]);
+      {p}_load_jacobian(tbl[1], gl + (size_t)i * {row});
+      for (int m = 2; m < 16; m++) {p}_add(tbl[m], tbl[m - 1], tbl[1]);
+      acc = tbl[cdig[first]];
+      for (int w = first + 1; w < 64; w++) {{
+        for (int k = 0; k < 4; k++) {{
+          {p}_dbl(t, acc);
+          acc = t;
+        }}
+        int d = cdig[w];
+        if (d) {{
+          {p}_add(t, acc, tbl[d]);
+          acc = t;
+        }}
+      }}
+    }} else {{
+      {p}_identity(acc);
+    }}
+    {p}p r;
+    {p}_load_jacobian(r, gr + (size_t)i * {row});
+    {p}_add(t, acc, r);
+    {p}_store(out + (size_t)i * {row}, t);
+  }}
+  {b}_normalize_group(out, pre, n, g, G);
+}}
+
+__global__ void {bounds}{b}_fold_radix16_kernel(const uint64_t *gl,
+                                        const uint64_t *gr, Windows64 c,
+                                        int n, int G, uint64_t *pre,
+                                        uint64_t *out) {{
+  int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g < G) {b}_fold_group_radix16(gl, gr, c.d, n, g, G, pre, out);
+}}
+"""
+
+
+def fold_bounds(b: str) -> str:
+    """The committed K7's (none) or K12's __launch_bounds__."""
+    return "__launch_bounds__(K_THREADS, FOLD2_BLOCKS) " if b == "bn2" else ""
+
+
+def bn_fold_radix16(b: str, p: str, row: str):
+    """The edit of ``{b}_fold.cu`` to BN_FOLD_RADIX16."""
+    def edit(text: str) -> str:
+        old = text[text.index("  FoldDigits c;\n"):text.index(
+            "  return (int)cudaGetLastError();\n}",
+            text.index("FoldDigits c;"))]
+        new = f"""  uint64_t v[4];
+  naf_value(cdig, nd, v);
+  Windows64 c;
+  for (int w = 0; w < 64; w++)  // most significant window first
+    c.d[63 - w] = (uint8_t)((v[w >> 4] >> (4 * (w & 15))) & 15);
+  {b}_fold_radix16_kernel<<<blocks_for(G, K_THREADS), K_THREADS, 0,
+                            (cudaStream_t)stream>>>(gl, gr, c, n, G, pre,
+                                                    out);
+"""
+        return text.replace(INCLUDES, INCLUDES + K3_REBUILD
+                            + BN_FOLD_RADIX16.format(b=b, p=p, row=row,
+                                                     bounds=fold_bounds(b))
+                            ).replace(old, new)
+    return edit
+
+
+# K7 and K12 with the encoding in launches of their own, as in the parent:
+# both inputs' working rows in a scratch of 2n rows (allocated once and
+# kept, as PyTorch's caching allocator kept the parent's), which the fold
+# body then loads as they are
+def bn_fold_encoded(b: str, p: str, row: str, header: str):
+    body = body_copy(header, f"{b}_fold_group", f"{b}_fold_group_encoded", [
+        (f"{p}_load_jacobian(tbl[0], gl", f"{p}_load(tbl[0], gl"),
+        (f"{p}_load_jacobian(r, gr", f"{p}_load(r, gr")])
+    kernels = f"""
+__global__ void {b}_encode_kernel(const uint64_t *in, uint64_t *out,
+                                  long long n) {{
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {b}_encode_one(in + i * {row}, out + i * {row});
+}}
+
+__global__ void {fold_bounds(b)}{b}_fold_encoded_kernel(const uint64_t *gl,
+                                        const uint64_t *gr, FoldDigits c,
+                                        int nd, int n, int G, uint64_t *pre,
+                                        uint64_t *out) {{
+  int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g < G) {b}_fold_group_encoded(gl, gr, c.d, nd, n, g, G, pre, out);
+}}
+"""
+
+    def edit(text: str) -> str:
+        start = text.index(f"  {b}_fold_norm_kernel<<<")
+        old = text[start:text.index("  return (int)cudaGetLastError();\n}",
+                                    start)]
+        new = f"""  static uint64_t *work = nullptr;
+  static size_t cap = 0;
+  size_t need = (size_t)2 * n * {row};
+  if (need > cap) {{
+    cudaFree(work);
+    if (cudaMalloc(&work, need * sizeof(uint64_t))) return 2;
+    cap = need;
+  }}
+  cudaStream_t s = (cudaStream_t)stream;
+  uint64_t *wl = work, *wr = work + (size_t)n * {row};
+  {b}_encode_kernel<<<blocks_for(n, K_THREADS), K_THREADS, 0, s>>>(gl, wl,
+                                                                  n);
+  {b}_encode_kernel<<<blocks_for(n, K_THREADS), K_THREADS, 0, s>>>(gr, wr,
+                                                                  n);
+  {b}_fold_encoded_kernel<<<blocks_for(G, K_THREADS), K_THREADS, 0, s>>>(
+      wl, wr, c, nd, n, G, pre, out);
+"""
+        return text.replace(INCLUDES, INCLUDES + body + kernels).replace(
+            old, new)
+    return edit
+
+
+# K7 and K12 with one inversion an element (G = n)
+BN_FOLD_PER_ELEMENT = ("  FoldDigits c;\n", "  FoldDigits c;\n  G = n;\n")
+
+
+def launch_bounds(kernel: str, blocks: int) -> tuple:
+    """The edit that asks for ``blocks`` blocks of K_THREADS an SM
+    (``__launch_bounds__``, which caps the kernel's registers)."""
+    return (f"__global__ void {kernel}(",
+            f"__global__ void __launch_bounds__(K_THREADS, {blocks})\n"
+            f"    {kernel}(")
+
+
+def fold_wave(blocks: int) -> tuple:
+    """The edit that runs K7 or K12 at one wave of ``blocks`` blocks an SM
+    whatever G the wrapper asks for (with launch_bounds, a thread count an
+    SM that the committed registers do not allow)."""
+    return ("  FoldDigits c;\n", f"""  FoldDigits c;
+  {{
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    long long wave = (long long){blocks} * K_THREADS * sms;
+    G = wave < n ? (int)wave : n;
+  }}
+""")
 
 
 # K6's inversion by a sliding window over the bits of p - 2 (odd powers
@@ -992,6 +1155,38 @@ VARIANTS = {
     "k3_wave384": ("fold", "fold.cu", [k3_wave(0)]),
     "k3_wave128": ("fold", "fold.cu", [k3_wave(128)]),
     "k3_max_l1": ("fold", "fold.cu", [K3_MAX_L1]),
+    # K7 and K12 over the parent's unsigned windows, with the encoding in
+    # launches of their own, with one inversion an element, at another
+    # count of blocks of 128 threads an SM (__launch_bounds__, which caps
+    # the registers: 168 at 3, 128 at 4, 102 at 5, 85 at 6, 64 at 8; K12's
+    # 2 gives the 255 of the parent's __launch_bounds__(K_THREADS, 1),
+    # which ran as fast), K7 with the most L1, and unchanged (a null
+    # variant: the offset between two libraries of one source)
+    "k7_radix16": ("bn_fold", "bn_fold.cu", [
+        bn_fold_radix16("bn", "g1", "12")]),
+    "k7_encode_launches": ("bn_fold", "bn_fold.cu", [
+        bn_fold_encoded("bn", "g1", "12", "bn254_kernels.cuh")]),
+    "k7_per_element": ("bn_fold", "bn_fold.cu", [BN_FOLD_PER_ELEMENT]),
+    **{f"k7_blocks{k}": ("bn_fold", "bn_fold.cu", [
+        launch_bounds("bn_fold_norm_kernel", k), fold_wave(k)])
+       for k in (3, 4)},
+    "k7_max_l1": ("bn_fold", "bn_fold.cu", [
+        ("  FoldDigits c;\n",
+         "  cudaFuncSetAttribute(bn_fold_norm_kernel, "
+         "cudaFuncAttributePreferredSharedMemoryCarveout, 0);\n"
+         "  FoldDigits c;\n")]),
+    "k7_same": ("bn_fold", "bn_fold.cu", [
+        (INCLUDES, INCLUDES + "// the committed source\n")]),
+    "k12_radix16": ("bn2_fold", "bn2_fold.cu", [
+        bn_fold_radix16("bn2", "g2", "BN2_ROW")]),
+    "k12_encode_launches": ("bn2_fold", "bn2_fold.cu", [
+        bn_fold_encoded("bn2", "g2", "BN2_ROW", "bn2_kernels.cuh")]),
+    "k12_per_element": ("bn2_fold", "bn2_fold.cu", [BN_FOLD_PER_ELEMENT]),
+    **{f"k12_blocks{k}": ("bn2_fold", "bn2_fold.cu", [
+        ("#define FOLD2_BLOCKS 4 ", f"#define FOLD2_BLOCKS {k} "),
+        fold_wave(k)]) for k in (2, 3, 5, 6, 8)},
+    "k12_same": ("bn2_fold", "bn2_fold.cu", [
+        (INCLUDES, INCLUDES + "// the committed source\n")]),
     # K6 with 1 or 2 lanes a group operation, 1 or 4 window groups, the
     # sliding-window inversion
     "k6_lanes1": ("bn_msm_tail", "bn_msm_tail.cu", [
@@ -1091,15 +1286,24 @@ NO_ROWS = {"k9_table_only", "k9_projective_table_only", "k10_reduce_only",
 # is the committed count): name -> entries
 ENTRIES = {"k13_c16": 16, "k13_c32": 32, "k13_c48": 48, "k13_c96": 96,
            "k13_c128": 128}
-# the committed K9 with its normalization, or K4, at one wave of another
-# count of threads an SM (the wrappers' TABLE_SM_THREADS and
-# COMB_SM_THREADS are the committed ones; K9's registers allow 384, K4's
-# 640, "all": what the registers allow): fewer threads, fewer inversions
-# and longer chains.  name -> (kernel, threads an SM)
+# the committed K9 with its normalization, K4, K7 or K12 at one wave of
+# another count of threads an SM (the wrappers' TABLE_SM_THREADS,
+# COMB_SM_THREADS and FOLD_SM_THREADS are the committed ones; K9's
+# registers allow 384, K4's 640, "all": what the registers allow): fewer
+# threads, fewer inversions and longer chains.  name -> (kernel, threads
+# an SM); WAVE_KNOBS names each kernel's wrapper setting: a module and its
+# constant, or a module, its dict and the key (None: no cap)
 WAVES = {"k9_norm_wave128": ("bn2_msm_accumulate", 128),
          "k9_norm_wave384": ("bn2_msm_accumulate", 384),
          "k4_wave_all": ("comb", 1 << 20), "k4_wave256": ("comb", 256),
-         "k4_wave128": ("comb", 128)}
+         "k4_wave128": ("comb", 128),
+         "k7_wave128": ("bn_fold", 128), "k7_wave_all": ("bn_fold", 1 << 20),
+         "k12_wave128": ("bn2_fold", 128), "k12_wave256": ("bn2_fold", 256),
+         "k12_wave_all": ("bn2_fold", 1 << 20)}
+WAVE_KNOBS = {"bn2_msm_accumulate": ("msm_bn2_cuda", "TABLE_SM_THREADS"),
+              "comb": ("msm_cuda", "COMB_SM_THREADS"),
+              "bn_fold": ("msm_cuda", "FOLD_SM_THREADS", "bn_fold"),
+              "bn2_fold": ("msm_cuda", "FOLD_SM_THREADS", "bn2_fold")}
 # K9's points a thread (the wrapper's ACCUM_POINTS_PER_THREAD is the
 # committed count), K10 on the accumulators each gives
 POINTS = {"k9_points16": 16, "k9_points32": 32, "k9_points64": 64}
@@ -1223,7 +1427,46 @@ def kernel_times(root: str, reps: int) -> dict:
     out["bn2_msm_tail"] = (smoke.cuda_ms(
         torch, lambda: mb2.msm_tail(acc2), reps), rows)
     out.update(bucket_times(torch, native, ced, rng, reps))
+    out.update(bn_fold_comb_times(torch, native, rng, n, reps))
     return out
+
+
+def bn_fold_digits(mc, c: int, order: int):
+    """c's digits for the BN folds of the package imported: the width-5
+    NAF of c mod the order, or, where fold_digits takes no order (an
+    earlier checkout, whose K7 and K12 read unsigned windows), those."""
+    try:
+        return mc.fold_digits(c, order)
+    except TypeError:
+        return mc.scalar_digits([c], order)[:, 0]
+
+
+def bn_fold_comb_times(torch, native, rng, n: int, reps: int) -> dict:
+    """K7 and K12 at n elements, K8 and K11 at n exponents (the
+    generators' comb tables): times and checksums, as kernel_times."""
+    from verifiable_mpc_tpu_torch.groups.bn256 import (ORDER, BNPoint,
+                                                       BNTwistPoint)
+    from verifiable_mpc_tpu_torch.ops import curve_bn as cbn
+    from verifiable_mpc_tpu_torch.ops import curve_bn2 as cb2
+    from verifiable_mpc_tpu_torch.ops import msm_bn2_cuda as mb2
+    from verifiable_mpc_tpu_torch.ops import msm_bn_cuda as mb
+    from verifiable_mpc_tpu_torch.ops import msm_cuda as mc
+
+    g7 = cbn.encode_points(smoke.bn_points(native, 2 * n, rng), "cuda")
+    g12 = cb2.encode_points(smoke.bn2_points(native, 2 * n, rng), "cuda")
+    d7 = bn_fold_digits(mc, rng.randrange(ORDER), ORDER)
+    d12 = bn_fold_digits(mc, rng.randrange(ORDER), ORDER)
+    pk, nw = mc.packed_digits(native._scalars_to_u64(
+        [rng.randrange(ORDER) for _ in range(n)], ORDER), ORDER)
+    dig = torch.from_numpy(pk).to("cuda")
+    t8 = mb.comb_table(BNPoint.generator, nw, "cuda")
+    t11 = mb2.bexp_table(BNTwistPoint.generator, nw, "cuda")
+    calls = {"bn_fold": lambda: mb.fold_rows(g7[:n], g7[n:], d7),
+             "bn2_fold": lambda: mb2.fold_rows(g12[:n], g12[n:], d12),
+             "bn_comb": lambda: mb.comb_rows(t8, dig),
+             "bn2_bexp": lambda: mb2.bexp_rows(t11, dig)}
+    return {k: (smoke.cuda_ms(torch, fn, reps), int(fn().sum().item()))
+            for k, fn in calls.items()}
 
 
 def bucket_times(torch, native, ced, rng, reps: int) -> dict:
@@ -1276,35 +1519,41 @@ def k4_digits(torch, native, mc, rng, n: int, dev):
 
 
 # the sources whose ptxas lines --parent prints for both checkouts: K2,
-# K4, K6 and K10, whose combination coop.cuh shares with K2 and K14, K13
-# and K14
+# K4, K6 and K10, whose combination coop.cuh shares with K2 and K14, K13,
+# K14, K7 and K12
 PTXAS_SOURCES = ("msm_tail.cu", "comb.cu", "bn_msm_tail.cu",
-                 "bn2_msm_tail.cu", "bucket_accum.cu", "bucket_reduce.cu")
+                 "bn2_msm_tail.cu", "bucket_accum.cu", "bucket_reduce.cu",
+                 "bn_fold.cu", "bn2_fold.cu")
 
 
 def ptxas_of(root: str) -> dict:
     """{kernel: (registers, stack, spill stores, spill loads, shared
     bytes)} of PTXAS_SOURCES in the checkout at ``root``, each compiled
-    alone with the package's flags (objects thrown away)."""
+    alone with the package's flags, all at once (objects thrown away)."""
     import subprocess
     import tempfile
 
     from verifiable_mpc_tpu_torch.ops import _cuda_build as cb
 
     csrc = os.path.join(root, "verifiable_mpc_tpu_torch", "csrc")
+    texts = []
     with tempfile.TemporaryDirectory() as tmp:
-        procs = [subprocess.run(
+        procs = [subprocess.Popen(
             [cb._nvcc(), *cb.NVCC_FLAGS, "-Xptxas=-v", "-c", "-o",
              os.path.join(tmp, src + ".o"), os.path.join(csrc, src)],
-            capture_output=True, text=True, timeout=900, check=True)
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for src in PTXAS_SOURCES]
-    return smoke.ptxas_usage("\n".join(p.stdout + p.stderr for p in procs))
+        for src, proc in zip(PTXAS_SOURCES, procs):
+            texts.append(proc.communicate(timeout=900)[0])
+            if proc.returncode:
+                raise RuntimeError(f"nvcc {src}:\n{texts[-1]}")
+    return smoke.ptxas_usage("\n".join(texts))
 
 
 def against(parent: str, reps: int) -> dict:
-    """K2, K3, K4, K6, K9, K10, K13 and K14 of this checkout and of the
-    one at ``parent``, each in a process of its own, in turns (parent,
-    this, this, parent); their rows must agree."""
+    """K2, K3, K4, K6, K7, K8, K9, K10, K11, K12, K13 and K14 of this
+    checkout and of the one at ``parent``, each in a process of its own,
+    in turns (parent, this, this, parent); their rows must agree."""
     import subprocess
 
     out = {"parent": [], "this": []}
@@ -1383,8 +1632,8 @@ def main(argv) -> int:
                     default=(sorted(VARIANTS) + sorted(SPLITS) + sorted(POINTS)
                              + sorted(WAVES) + sorted(ENTRIES)))
     ap.add_argument("--parent", default=None,
-                    help="also time K2, K3, K4, K6, K9, K10, K13 and K14 "
-                    "against this checkout's")
+                    help="also time K2-K4 and K6-K14 against this "
+                    "checkout's")
     ap.add_argument("--kernel-times", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.kernel_times:
@@ -1413,6 +1662,9 @@ def main(argv) -> int:
     print(smoke.card_line(), flush=True)
     vm.enable_gpu("cuda")
     main_lib = cb.lib()
+    print(f"threads an SM that the registers allow: K7 "
+          f"{main_lib.vmpc_cu_bn_fold_resident()}, K12 "
+          f"{main_lib.vmpc_cu_bn2_fold_resident()}", flush=True)
     libs = build_variants(sorted({v for v in args.only if v in VARIANTS}))
     dev = torch.device("cuda")
     n = 1 << args.log2
@@ -1448,6 +1700,14 @@ def main(argv) -> int:
                                     dev)
         cdig = mc.fold_digits(rng.randrange(ELL))
         calls["fold"] = lambda: mc.fold_rows(g[:n], g[n:], cdig)
+    if "bn_fold" in kernels:
+        g7 = cbn.encode_points(smoke.bn_points(native, 2 * n, rng), dev)
+        cdig7 = mc.fold_digits(rng.randrange(ORDER), ORDER)
+        calls["bn_fold"] = lambda: mb.fold_rows(g7[:n], g7[n:], cdig7)
+    if "bn2_fold" in kernels:
+        g12 = cb2.encode_points(smoke.bn2_points(native, 2 * n, rng), dev)
+        cdig12 = mc.fold_digits(rng.randrange(ORDER), ORDER)
+        calls["bn2_fold"] = lambda: mb2.fold_rows(g12[:n], g12[n:], cdig12)
     if "bn_msm_tail" in kernels:
         work = cbn.encode_jacobian_rows(cbn.encode_points(
             smoke.bn_points(native, 4096, rng), dev))
@@ -1485,9 +1745,14 @@ def main(argv) -> int:
             ced.normalize_rows(ced.split_rows(x.reshape(-1, 16)))
             for x in (a, b)))
     want = {k: fn() for k, fn in calls.items()}
+    mods = {"msm_cuda": mc, "msm_bn2_cuda": mb2}
+    # each knob as (dict, key): a module's constant through its __dict__
+    knobs = {k: (vars(mods[m]), attr) if not key
+             else (getattr(mods[m], attr), key[0])
+             for k, (m, attr, *key) in WAVE_KNOBS.items()}
     committed = {mc: mc.tail_split, mb2: mb2.tail_split,
                  "points": mb2.ACCUM_POINTS_PER_THREAD,
-                 "wave": mb2.TABLE_SM_THREADS, "comb": mc.COMB_SM_THREADS,
+                 "waves": {k: d[key] for k, (d, key) in knobs.items()},
                  "entries": bk.ACCUM_ENTRIES}
     out = {}
     for name in args.only:
@@ -1502,11 +1767,9 @@ def main(argv) -> int:
             if name in SPLITS and which == name:
                 mod = mb2 if kernel == "bn2_msm_tail" else mc
                 mod.tail_split = lambda *a, R=SPLITS[name][1], **k: R
-            wave = WAVES[name][1] if which == name and name in WAVES else None
-            mb2.TABLE_SM_THREADS = (wave if wave and kernel != "comb"
-                                    else committed["wave"])
-            mc.COMB_SM_THREADS = (wave if wave and kernel == "comb"
-                                  else committed["comb"])
+            for k, (d, key) in knobs.items():
+                d[key] = (WAVES[name][1] if which == name and name in WAVES
+                          and k == kernel else committed["waves"][k])
             bk.ACCUM_ENTRIES = (ENTRIES[name] if which == name
                                 and name in ENTRIES else committed["entries"])
             if name in POINTS:
@@ -1526,8 +1789,8 @@ def main(argv) -> int:
             mc.tail_split, mb2.tail_split = committed[mc], committed[mb2]
         cb._lib = main_lib
         mb2.ACCUM_POINTS_PER_THREAD = committed["points"]
-        mb2.TABLE_SM_THREADS = committed["wave"]
-        mc.COMB_SM_THREADS = committed["comb"]
+        for k, (d, key) in knobs.items():
+            d[key] = committed["waves"][k]
         bk.ACCUM_ENTRIES = committed["entries"]
         out.setdefault(name, []).append(times)
         if name in POINTS:

@@ -59,6 +59,12 @@ def k():
 
 def _rows(k, n, seed, identity_at=()):
     """Input rows of n twist points, every third one with Z != 1."""
+    return k.cb2.encode_points(_points(n, seed, identity_at), "cpu")
+
+
+def _points(n, seed, identity_at=()):
+    """n twist points, every third one in jacobian coordinates with Z !=
+    1."""
     rng = random.Random(seed)
     pts = native.bn2_batch_exp(BNTwistPoint.generator,
                                [rng.randrange(1, ORDER) for _ in range(n)])
@@ -70,7 +76,7 @@ def _rows(k, n, seed, identity_at=()):
     for i in identity_at:
         if i < n:
             pts[i] = BNTwistPoint.identity
-    return k.cb2.encode_points(pts, "cpu")
+    return pts
 
 
 def _u64(t):
@@ -296,19 +302,52 @@ def test_bexp_body_matches_plain(host_lib, case, k):
     assert all(out[i].tolist() == ident for i in zero)
 
 
-@pytest.mark.parametrize("n", [1, 7, 40])
+# K12's cases, as K7's in test_torch_bn_host.py: id -> (n, threads G or
+# None for G = n, a challenge's name in msm_cuda.fold_challenges(ORDER) or
+# None for a random one, identities).  G = 1
+# folds every element in one thread, G = 3 and 6 leave ragged
+# normalization groups; with identities every element of thread 0's group
+# (0, G, 2G, ...) has identity gl and gr, and element 1 a gr with
+# gl^c * gr the identity
+FOLD_CASES = {"1": (1, None, None, False), "7": (7, None, None, False),
+              "40": (40, None, None, False), "7-G1": (7, 1, None, False),
+              "7-G3-c0": (7, 3, "c0", False), "7-G3-c1": (7, 3, "c1", False),
+              "7-G3-c8": (7, 3, "c8", False), "7-G3-c9": (7, 3, "c9", False),
+              "40-G6-order-1": (40, 6, "order-1", False),
+              "40-G6-zero-run": (40, 6, "zero-run", False),
+              "40-G6-identities": (40, 6, None, True)}
+
+
+@pytest.mark.parametrize("n", list(FOLD_CASES))
 def test_fold_body_matches_plain(host_lib, n, k):
-    gl, gr = _rows(k, n, 2 * n, (1,)), _rows(k, n, 2 * n + 1, (3,))
-    rng = random.Random(n)
-    cdig = np.ascontiguousarray(k.mc.scalar_digits(
-        [rng.randrange(ORDER)], ORDER)[:, 0].astype(np.uint8))
-    out = np.zeros((n, 24), np.uint64)
-    work = np.zeros((2 * n, 24), np.uint64)
-    a, b = _u64(gl), _u64(gr)
-    host_lib.host_bn2_fold_norm(_p(a), _p(b), _p(work), _p(cdig), 64,
-                                _p(out), n)
-    plain = k.mb2.fold_plain(gl, gr, cdig)
-    assert np.array_equal(out, _u64(plain))
+    """K12's body over all G threads (each folding its elements g, g + G,
+    ... from their input rows and normalizing them with one GF(p^2)
+    inversion) against fold_plain and the C++ tier's MSM of (gl_i, gr_i)
+    by (c, 1), the output and scratch filled with a sentinel first."""
+    n, G, c, ident = FOLD_CASES[n]
+    G = G or n
+    if c is None:
+        c = random.Random(n).randrange(ORDER)
+    else:
+        c = k.mc.fold_challenges(ORDER)[c]
+    zero = list(range(0, n, G)) if ident else []
+    gl = _points(n, 2 * n, [1] + zero)
+    gr = _points(n, 2 * n + 1, [3] + zero)
+    if ident and n > 1:
+        gl[1] = BNTwistPoint.generator ** 77
+        gr[1] = -(gl[1] ** c)
+    gl_t, gr_t = (k.cb2.encode_points(p, "cpu") for p in (gl, gr))
+    cdig = k.mc.fold_digits(c, ORDER)
+    out = np.full((n, 24), SENTINEL)
+    pre = np.full((n, 8), SENTINEL)
+    host_lib.host_bn2_fold_norm(_p(_u64(gl_t)), _p(_u64(gr_t)), _p(cdig),
+                                len(cdig), G, _p(pre), _p(out), n)
+    assert np.array_equal(out, _u64(k.mb2.fold_plain(gl_t, gr_t, cdig)))
+    host = BNTwistPoint.batch_normalize(
+        [native.bn2_msm([a, b], [c, 1]) for a, b in zip(gl, gr)])
+    assert np.array_equal(out, native._bn2_pts_to_u64(host))
+    ident_row = [1, 0, 0, 0, 0, 0, 0, 0, 1] + [0] * 15
+    assert all(out[i].tolist() == ident_row for i in zero + [1][:ident])
 
 
 @pytest.mark.parametrize("n", [1, 40])

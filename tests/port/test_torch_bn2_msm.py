@@ -21,6 +21,7 @@ from verifiable_mpc_tpu_torch import native
 from verifiable_mpc_tpu_torch.groups.bn256 import GFp2, BNTwistPoint
 
 from test_torch_bn_field import load_reference_native
+from test_torch_bn_msm import FOLD_CHALLENGES
 
 EDGE = [0, 1, ORDER // 2 - 1, ORDER // 2, ORDER // 2 + 1, ORDER - 2,
         ORDER - 1, -1, -ORDER // 3]
@@ -137,17 +138,36 @@ def test_batch_exp_plain_matches_reference(n, k):
     assert all(repr(got[i]) == repr(BNTwistPoint.identity) for i in zero)
 
 
-@pytest.mark.parametrize("n", [1, 17, 64])
+# n and the challenge (None: a random one) of each fold case: the edge
+# challenges of msm_cuda.fold_challenges(ORDER), by name, at n = 3; at
+# n = 6 element 4's gr makes gl^c * gr the identity.  gl is the identity
+# at index 2, gr at index 5.
+FOLD_CASES = {"1": (1, None), "17": (17, None), "64": (64, None),
+              "sum-identity": (6, None),
+              **{name: (3, name) for name in FOLD_CHALLENGES}}
+
+
+@pytest.mark.parametrize("n", list(FOLD_CASES))
 def test_fold_plain_matches_reference(n, k):
+    """K12's plain version through fold() against the JAX package's host
+    law (n <= 6) or its C++ tier's MSM of (gl_i, gr_i) by (c, 1)."""
+    name, (n, c) = n, FOLD_CASES[n]
     gl = _ref_points(n, 2 * n, identity_at=(2,))
     gr = _ref_points(n, 2 * n + 1, identity_at=(5,))
-    c = _scalars(n + 9, 3 * n)[-1]
+    if c is None:
+        c = _scalars(n + 9, 3 * n)[-1]
+    else:
+        c = k.mc.fold_challenges(ORDER)[c]
+    if name == "sum-identity":
+        gr[4] = -(gl[4] ** c)
     got = k.mb2.fold([_port(p) for p in gl], [_port(p) for p in gr], c)
-    if n == 1:
+    if n <= 6:
         expect = [a ** c * b for a, b in zip(gl, gr)]
     else:
         expect = [ref_native.bn2_msm([a, b], [c, 1]) for a, b in zip(gl, gr)]
     assert [_affine(p) for p in got] == [_affine(p) for p in expect]
+    if name == "sum-identity":
+        assert repr(got[4]) == repr(BNTwistPoint.identity)
 
 
 def test_comb_table_rows_match_host_law(k):

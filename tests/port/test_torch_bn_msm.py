@@ -18,6 +18,7 @@ from verifiable_mpc_tpu import native as ref_native
 from verifiable_mpc_tpu.groups.bn256 import ORDER, BNPoint as RefPoint
 from verifiable_mpc_tpu.ops import bn_pallas as ref_bp
 from verifiable_mpc_tpu.ops import dispatch as ref_dispatch
+from verifiable_mpc_tpu.ops import msm as ref_msm
 from verifiable_mpc_tpu.ops import msm_pallas as ref_mp
 from verifiable_mpc_tpu_torch import native
 from verifiable_mpc_tpu_torch.groups.bn256 import BNPoint
@@ -27,6 +28,13 @@ from test_torch_bn_field import load_reference_native
 EDGE = [0, 1, ORDER // 2 - 1, ORDER // 2, ORDER // 2 + 1, ORDER - 2,
         ORDER - 1, -1, -ORDER // 3]
 LANES = 81  # the JAX-side group law runs eagerly on one shape
+
+
+# the names of msm_cuda.fold_challenges(ORDER): the folds' edge
+# challenges, "top-digit"'s NAF a digit past the order's top bit (the
+# values are read in the tests, where the port's modules are imported)
+FOLD_CHALLENGES = ("c0", "c1", "c8", "c9", "order-1", "zero-run",
+                   "top-digit")
 
 
 @pytest.fixture(scope="module")
@@ -226,17 +234,55 @@ def test_msm_tail_plain_matches_reference(nw, S, R, k):
         assert got[b].z in (0, 1)  # normalized
 
 
-@pytest.mark.parametrize("n", [1, 17, 64])
+@pytest.mark.parametrize("name", sorted(FOLD_CHALLENGES) + ["random"])
+def test_fold_digits_match_reference_integer(name, k):
+    """K7's and K12's digits, the width-5 NAF of c mod ORDER (257 digits,
+    most significant first: the order has 256 bits), rebuild the integer
+    of the JAX package's unsigned windows of c (ops/msm._scalar_digits),
+    each digit 0 or odd in [-15, 15], at most one nonzero in any five."""
+    edges = k.mc.fold_challenges(ORDER)
+    assert sorted(edges) == sorted(FOLD_CHALLENGES)
+    c = edges.get(name, random.Random(9).randrange(ORDER))
+    windows = ref_msm._scalar_digits([c], ORDER)[:, 0]
+    want = sum(int(d) << (4 * (63 - w)) for w, d in enumerate(windows))
+    d = k.mc.fold_digits(c, ORDER)
+    assert d.dtype == np.int8 and d.shape == (257,)
+    assert sum(int(x) << (256 - i) for i, x in enumerate(d)) == want
+    nz = np.flatnonzero(d)
+    assert (np.abs(d[nz]) <= 15).all() and (d[nz] % 2 == 1).all()
+    assert (np.diff(nz) >= 5).all()
+    assert (d[0] != 0) == (name == "top-digit")
+
+
+# n and the challenge (None: a random one) of each fold case: the edge
+# challenges (by name) at n = 4; at n = 6 element 4's gr makes gl^c * gr
+# the identity.  gl is the identity at index 2, gr at index 5.
+FOLD_CASES = {"1": (1, None), "17": (17, None), "64": (64, None),
+              "sum-identity": (6, None),
+              **{name: (4, name) for name in FOLD_CHALLENGES}}
+
+
+@pytest.mark.parametrize("n", list(FOLD_CASES))
 def test_fold_plain_matches_reference(n, k):
+    """K7's plain version through fold() against the JAX package's host
+    law (n <= 17) or its C++ tier's MSM of (gl_i, gr_i) by (c, 1)."""
+    name, (n, c) = n, FOLD_CASES[n]
     gl = _ref_points(n, 2 * n, identity_at=(2,))
     gr = _ref_points(n, 2 * n + 1, identity_at=(5,))
-    c = _scalars(n + 9, 3 * n)[-1]
+    if c is None:
+        c = _scalars(n + 9, 3 * n)[-1]
+    else:
+        c = k.mc.fold_challenges(ORDER)[c]
+    if name == "sum-identity":
+        gr[4] = -(gl[4] ** c)
     got = k.mb.fold([_port(p) for p in gl], [_port(p) for p in gr], c)
     if n <= 17:
         expect = [a ** c * b for a, b in zip(gl, gr)]
     else:
         expect = [ref_native.bn_msm([a, b], [c, 1]) for a, b in zip(gl, gr)]
     assert [_affine(p) for p in got] == [_affine(p) for p in expect]
+    if name == "sum-identity":
+        assert repr(got[4]) == repr(BNPoint.identity)
 
 
 @pytest.mark.parametrize("n", [1, 17, 64])

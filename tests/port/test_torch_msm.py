@@ -141,13 +141,13 @@ FOLD_CHALLENGES = {"c0": 0, "c1": 1, "c8": 8, "c9": 9, "cl-1": ELL - 1,
 
 @pytest.mark.parametrize("name", sorted(FOLD_CHALLENGES))
 def test_fold_digits_rebuild_the_challenge(name, k):
-    """K3's digits, c's width-5 NAF (not balanced against the order): 256
-    digits, most significant first, each 0 or odd in [-15, 15], at most
-    one nonzero in any five, that rebuild c."""
+    """K3's digits, c's width-5 NAF (not balanced against the order): 254
+    digits (one more than l's bits), most significant first, each 0 or odd
+    in [-15, 15], at most one nonzero in any five, that rebuild c."""
     c = FOLD_CHALLENGES[name]
     d = k.mc.fold_digits(c)
-    assert d.dtype == np.int8 and d.shape == (256,)
-    assert sum(int(x) << (255 - i) for i, x in enumerate(d)) == c % ELL
+    assert d.dtype == np.int8 and d.shape == (ELL.bit_length() + 1,) == (254,)
+    assert sum(int(x) << (253 - i) for i, x in enumerate(d)) == c % ELL
     nz = np.flatnonzero(d)
     assert (np.abs(d[nz]) <= 15).all() and (d[nz] % 2 == 1).all()
     assert (np.diff(nz) >= 5).all()

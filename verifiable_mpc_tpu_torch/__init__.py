@@ -51,6 +51,13 @@ def enable_gpu(device=None, min_msm_batch: int = MIN_MSM_BATCH,
     :data:`BN2_MIN_BATCH`) go to the C++ host tier, which also serves the
     engine's sub-cutover tail (a BN or twist fold below it takes the host
     loop: the C++ tier has neither fold).
+
+    The folds of ``min_msm_batch`` elements or more run K3 (Ed25519), K7
+    (BN G1) and K12 (the twist) on one design: the challenge as the width-5
+    NAF of c mod the group's order (``msm_cuda.fold_digits``), each
+    element's table of odd multiples 1..15 and its encoding in the kernel,
+    and one wave of threads (``fold_threads``), each normalizing its
+    elements with one inversion.
     """
     import torch
 

@@ -15,8 +15,8 @@
 // Data formats (all little-endian):
 //   input row    12 x u64: X, Y, Z, four u64 limbs each, jacobian, each
 //                coordinate canonical in standard form: the rows of
-//                native._bn_pts_to_u64 (ops/curve_bn.py).  K7 first
-//                turns them into working rows (bn_encode_kernel), K8
+//                native._bn_pts_to_u64 (ops/curve_bn.py).  K7 encodes
+//                them as it loads them (g1_load_jacobian), K8 turns them
 //                into affine working rows (bn_encode_affine_one), K5
 //                into its table (bn_table_kernel).
 //   working row  12 x u64: X, Y, Z, projective, each coordinate canonical
@@ -490,35 +490,57 @@ FE_FN void coop_store_normalized(uint64_t *out, const g1_coop &s) {
   g1_store_normalized(out, h);
 }
 
-// K7 body (B3's BN instance, msm_pallas._make_fold_kernel): gl^c * gr for
-// the challenge c given as nw unsigned 4-bit windows, most significant
-// first, from a 0..15 table of gl (working rows); the result leaves
-// normalized.
-FE_FN void bn_fold_norm_one(const uint64_t *gl_row, const uint64_t *gr_row,
-                            const uint8_t *cdig, int nw, uint64_t *out_row) {
-  g1p tbl[16];
-  g1_identity(tbl[0]);
-  g1_load(tbl[1], gl_row);
-  for (int m = 2; m < 16; m++) g1_add(tbl[m], tbl[m - 1], tbl[1]);
-  g1p acc;
-  g1_identity(acc);
-  for (int w = 0; w < nw; w++) {
-    for (int k = 0; k < 4; k++) {
-      g1p t;
-      g1_dbl(t, acc);
-      acc = t;
+// K7 body (B3's BN instance, msm_pallas._make_fold_kernel, redesigned on
+// K3's fold_group): gl_i^c * gr_i for the elements i = g, g + G, g + 2G,
+// ... < n of one thread, c given as its nd width-5 NAF digits, most
+// significant first (msm_cuda.fold_digits with the BN order: 0 or odd in
+// [-15, 15], at most one nonzero in any five; c is not balanced, so
+// nothing rests on a point lying in the order's subgroup).  Per element:
+// gl_i and gr_i encoded from their input rows as they are loaded, the
+// table of gl_i's odd multiples 1, 3, ..., 15 (one doubling and 7 complete
+// adds, 768 bytes of local memory), the sum started from the first nonzero
+// digit's entry, then per digit a doubling and, for a nonzero digit, an
+// add of the entry with its Y negated for a negative digit, then the add
+// of gr_i.  Every thread reads the same digit, so no branch diverges.  The
+// complete formulas take identities (an identity gl_i gives identity
+// entries).  The sums go to their out rows as working rows and leave
+// normalized by one inversion for the group (bn_normalize_group, pre its
+// scratch; a sum that is the identity leaves as (1, 1, 0)).
+FE_FN void bn_fold_group(const uint64_t *gl, const uint64_t *gr,
+                         const int8_t *cdig, int nd, int n, int g, int G,
+                         uint64_t *pre, uint64_t *out) {
+  int first = 0;
+  while (first < nd && cdig[first] == 0) first++;
+  for (int i = g; i < n; i += G) {
+    g1p acc, t;
+    if (first < nd) {
+      g1p tbl[8], p2;
+      g1_load_jacobian(tbl[0], gl + (size_t)i * 12);
+      g1_dbl(p2, tbl[0]);
+      for (int k = 1; k < 8; k++) g1_add(tbl[k], tbl[k - 1], p2);
+      int d = cdig[first];
+      acc = tbl[((d < 0 ? -d : d) - 1) >> 1];
+      if (d < 0) g1_neg(acc);
+      for (int b = first + 1; b < nd; b++) {
+        g1_dbl(t, acc);
+        acc = t;
+        d = cdig[b];
+        if (d != 0) {
+          g1p q = tbl[((d < 0 ? -d : d) - 1) >> 1];
+          if (d < 0) g1_neg(q);
+          g1_add(t, acc, q);
+          acc = t;
+        }
+      }
+    } else {
+      g1_identity(acc);
     }
-    int d = cdig[w];
-    if (d) {
-      g1p t;
-      g1_add(t, acc, tbl[d]);
-      acc = t;
-    }
+    g1p r;
+    g1_load_jacobian(r, gr + (size_t)i * 12);
+    g1_add(t, acc, r);
+    g1_store(out + (size_t)i * 12, t);
   }
-  g1p r, out;
-  g1_load(r, gr_row);
-  g1_add(out, acc, r);
-  g1_store_normalized(out_row, out);
+  bn_normalize_group(out, pre, n, g, G);
 }
 
 // K8 body (B5's BN instance, msm_pallas._make_bexp_comb_kernel):

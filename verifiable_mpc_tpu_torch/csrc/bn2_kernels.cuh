@@ -702,25 +702,51 @@ FE_FN void bn2_bexp_group(const uint64_t *tbl, const uint8_t *digits, int n,
   bn2_normalize_group(out, pre, n, g, G);
 }
 
-// K12 body (B3's BN2 instance, msm_pallas._make_fold_kernel): gl^c * gr
-// for the challenge c given as nw unsigned 4-bit windows, most significant
-// first, from a 0..15 table of gl (working rows, local memory); the result
-// leaves normalized.
-FE_FN void bn2_fold_norm_one(const uint64_t *gl_row, const uint64_t *gr_row,
-                             const uint8_t *cdig, int nw, uint64_t *out_row) {
-  g2p tbl[16];
-  g2_identity(tbl[0]);
-  g2_load(tbl[1], gl_row);
-  for (int m = 2; m < 16; m++) g2_add(tbl[m], tbl[m - 1], tbl[1]);
-  g2p acc;
-  g2_identity(acc);
-  for (int w = 0; w < nw; w++) {
-    for (int k = 0; k < 4; k++) g2_dbl(acc, acc);
-    int d = cdig[w];
-    if (d) g2_add(acc, acc, tbl[d]);
+// K12 body (B3's BN2 instance, msm_pallas._make_fold_kernel, redesigned
+// on K3's fold_group as K7's bn_fold_group): gl_i^c * gr_i for the
+// elements i = g, g + G, g + 2G, ... < n of one thread, c given as its nd
+// width-5 NAF digits, most significant first (msm_cuda.fold_digits with
+// the BN order; c is not balanced, so nothing rests on a point lying in
+// the order's subgroup: the twist's cofactor is 2p - n).  Per element:
+// gl_i and gr_i encoded as they are loaded, the table of gl_i's odd
+// multiples 1, 3, ..., 15 (one doubling and 7 complete adds, 1.5 KB of
+// local memory), the sum started from the first nonzero digit's entry,
+// then per digit a doubling and, for a nonzero digit, an add of the entry
+// with its Y negated for a negative digit, then the add of gr_i.  Every
+// thread reads the same digit, so no branch diverges.  The sums go to
+// their out rows as working rows and leave normalized by one GF(p^2)
+// inversion for the group (bn2_normalize_group, pre its scratch).
+FE_FN void bn2_fold_group(const uint64_t *gl, const uint64_t *gr,
+                          const int8_t *cdig, int nd, int n, int g, int G,
+                          uint64_t *pre, uint64_t *out) {
+  int first = 0;
+  while (first < nd && cdig[first] == 0) first++;
+  for (int i = g; i < n; i += G) {
+    g2p acc;
+    if (first < nd) {
+      g2p tbl[8], p2;
+      g2_load_jacobian(tbl[0], gl + (size_t)i * BN2_ROW);
+      g2_dbl(p2, tbl[0]);
+      for (int k = 1; k < 8; k++) g2_add(tbl[k], tbl[k - 1], p2);
+      int d = cdig[first];
+      acc = tbl[((d < 0 ? -d : d) - 1) >> 1];
+      if (d < 0) g2_neg(acc);
+      for (int b = first + 1; b < nd; b++) {
+        g2_dbl(acc, acc);
+        d = cdig[b];
+        if (d != 0) {
+          g2p q = tbl[((d < 0 ? -d : d) - 1) >> 1];
+          if (d < 0) g2_neg(q);
+          g2_add(acc, acc, q);
+        }
+      }
+    } else {
+      g2_identity(acc);
+    }
+    g2p r;
+    g2_load_jacobian(r, gr + (size_t)i * BN2_ROW);
+    g2_add(acc, acc, r);
+    g2_store(out + (size_t)i * BN2_ROW, acc);
   }
-  g2p r;
-  g2_load(r, gr_row);
-  g2_add(acc, acc, r);
-  g2_store_normalized(out_row, acc);
+  bn2_normalize_group(out, pre, n, g, G);
 }

@@ -10,12 +10,12 @@
 // Design (fold_group in ed25519_kernels.cuh): G threads, thread g folding
 // the elements g, g + G, ... and normalizing them with one inversion
 // (Montgomery's trick), so no element pays a Fermat chain of its own; G
-// is one wave of msm_cuda.FOLD_SM_THREADS threads an SM, fewer than the
-// registers allow, which ran faster on the H100 (PERF.md).  c is a width-5
-// NAF (about 43 adds, where signed radix-16 takes about 60) over a 1 KB
-// local table of g_l[i]'s odd multiples 1..15 (K1's table body), the sum
-// starts at its first nonzero digit, and T is computed only in the
-// doubling an add reads: about 2,250 field products an element, where
+// is one wave of msm_cuda.FOLD_SM_THREADS["fold"] threads an SM, fewer
+// than the registers allow, which ran faster on the H100 (PERF.md).  c is
+// a width-5 NAF (about 43 adds, where signed radix-16 takes about 60) over
+// a 1 KB local table of g_l[i]'s odd multiples 1..15 (K1's table body),
+// the sum starts at its first nonzero digit, and T is computed only in
+// the doubling an add reads: about 2,250 field products an element, where
 // unsigned radix-16 windows over a 0..15 table, 256 full doublings and an
 // inversion an element took about 2,930.
 //
@@ -23,12 +23,6 @@
 
 #include "ed25519_kernels.cuh"
 #include "launch.cuh"
-
-#define FOLD_DIGITS 256
-
-struct FoldDigits {
-  int8_t d[FOLD_DIGITS];
-};
 
 __global__ void fold_norm_kernel(const uint64_t *gl, const uint64_t *gr,
                                  FoldDigits c, int nd, int n, int G,
@@ -45,8 +39,8 @@ extern "C" int vmpc_cu_fold_resident() {
   return e != cudaSuccess ? -(int)e : blocks * K_THREADS;
 }
 
-// gl, gr, out [n][16]; cdig: nd (<= 256) NAF digits, host memory; G
-// threads (0 < G <= n); pre [n][4] scratch
+// gl, gr, out [n][16]; cdig: nd (<= FOLD_DIGITS) NAF digits, host
+// memory; G threads (0 < G <= n); pre [n][4] scratch
 extern "C" int vmpc_cu_fold_norm(const uint64_t *gl, const uint64_t *gr,
                                  const int8_t *cdig, int nd, int G,
                                  uint64_t *pre, uint64_t *out, int n,

@@ -351,15 +351,13 @@ void host_bn_msm(const uint64_t *pts, uint64_t *tbl, const uint8_t *digits,
   host_bn_msm_tail(acc, wsum, out, 1, nw, S, 1, 4, 8);
 }
 
-// K7: gl, gr [n][12] input rows, work [2n][12]
+// K7 with G threads: gl, gr [n][12] input rows, cdig nd NAF digits,
+// pre [n][4], out [n][12]
 void host_bn_fold_norm(const uint64_t *gl, const uint64_t *gr,
-                       uint64_t *work, const uint8_t *cdig, int nw,
+                       const int8_t *cdig, int nd, int G, uint64_t *pre,
                        uint64_t *out, int n) {
-  host_bn_encode(gl, work, n);
-  host_bn_encode(gr, work + (size_t)n * 12, n);
-  for (int i = 0; i < n; i++)
-    bn_fold_norm_one(work + (size_t)i * 12, work + (size_t)(n + i) * 12,
-                     cdig, nw, out + (size_t)i * 12);
+  for (int g = 0; g < G; g++)
+    bn_fold_group(gl, gr, cdig, nd, n, g, G, pre, out);
 }
 
 // K8 with G threads: table [nw*9][12] input rows, work [nw*9][12],
@@ -507,16 +505,13 @@ void host_bn2_bexp(const uint64_t *table, uint64_t *work,
     bn2_bexp_group(work, digits, n, nw, g, G, pre, out);
 }
 
-// K12: gl, gr [n][24] input rows, work [2n][24]
+// K12 with G threads: gl, gr [n][24] input rows, cdig nd NAF digits,
+// pre [n][8], out [n][24]
 void host_bn2_fold_norm(const uint64_t *gl, const uint64_t *gr,
-                        uint64_t *work, const uint8_t *cdig, int nw,
+                        const int8_t *cdig, int nd, int G, uint64_t *pre,
                         uint64_t *out, int n) {
-  host_bn2_encode(gl, work, n);
-  host_bn2_encode(gr, work + (size_t)n * BN2_ROW, n);
-  for (int i = 0; i < n; i++)
-    bn2_fold_norm_one(work + (size_t)i * BN2_ROW,
-                      work + (size_t)(n + i) * BN2_ROW, cdig, nw,
-                      out + (size_t)i * BN2_ROW);
+  for (int g = 0; g < G; g++)
+    bn2_fold_group(gl, gr, cdig, nd, n, g, G, pre, out);
 }
 
 // GF(p^2) ops on single canonical values (8 u64 limbs each: c0, c1)

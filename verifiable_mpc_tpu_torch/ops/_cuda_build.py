@@ -73,7 +73,9 @@ def lib():
         so.vmpc_cu_bn_msm_accum.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
                                             vp]
         so.vmpc_cu_bn_msm_tail.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
-        so.vmpc_cu_bn_fold_norm.argtypes = [vp, vp, vp, vp, ci, vp, ci, vp]
+        so.vmpc_cu_bn_fold_norm.argtypes = [vp, vp, vp, ci, ci, vp, vp, ci,
+                                            vp]
+        so.vmpc_cu_bn_fold_resident.argtypes = []
         so.vmpc_cu_bn_comb_norm.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp,
                                             vp]
         so.vmpc_cu_bn_comb_resident.argtypes = []
@@ -83,7 +85,9 @@ def lib():
         so.vmpc_cu_bn2_msm_tail.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
         so.vmpc_cu_bn2_bexp.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp, vp]
         so.vmpc_cu_bn2_bexp_resident.argtypes = []
-        so.vmpc_cu_bn2_fold_norm.argtypes = [vp, vp, vp, vp, ci, vp, ci, vp]
+        so.vmpc_cu_bn2_fold_norm.argtypes = [vp, vp, vp, ci, ci, vp, vp, ci,
+                                             vp]
+        so.vmpc_cu_bn2_fold_resident.argtypes = []
         so.vmpc_cu_bucket_accum.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
                                             ci, ci, ci, vp]
         so.vmpc_cu_bucket_reduce.argtypes = [vp, vp, vp, ci, ci, vp]
@@ -108,7 +112,8 @@ def lib():
                    so.vmpc_cu_probe_vpu_resident,
                    so.vmpc_cu_probe_carrychain_resident,
                    so.vmpc_cu_fold_resident, so.vmpc_cu_comb_resident,
-                   so.vmpc_cu_bn_comb_resident,
+                   so.vmpc_cu_bn_fold_resident, so.vmpc_cu_bn_comb_resident,
+                   so.vmpc_cu_bn2_fold_resident,
                    so.vmpc_cu_bn2_bexp_resident,
                    so.vmpc_cu_bn2_table_resident):
             fn.restype = ci

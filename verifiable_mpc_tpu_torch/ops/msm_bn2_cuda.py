@@ -11,7 +11,7 @@ source each, over ``csrc/fp2_254.cuh`` and ``csrc/bn2_kernels.cuh``):
 K9     bn2_msm_accumulate      4-bit signed-window accumulation (B1, BN2)
 K10    bn2_msm_tail            window reduction + split Horner + normalize (B2)
 K11    bn2_bexp                fixed-base comb + batch normalize (B4, BN2)
-K12    bn2_fold                g_l^c * g_r + normalize (B3, BN2)
+K12    bn2_fold                g_l^c * g_r + batch normalize (B3, BN2)
 =====  ======================  ===========================================
 
 Each wrapper (:func:`msm_rows`, :func:`bexp_rows`, :func:`fold_rows`)
@@ -22,15 +22,22 @@ CUDA tensor never reaches a plain version, and a failed build or launch
 raises.
 
 Points travel as ``[n, 24]`` int64 input rows (``ops/curve_bn2.py``):
-jacobian, standard form, as ``native._bn2_pts_to_u64`` gives them.  K9, K11
-and K12 turn them into working rows (projective, Montgomery form) in a
-first launch (K9 the affine entries of each point's multiples 1..8, K11
-the rows of its comb table, which the C++ tier builds and
-:func:`bexp_table` caches per base), and every result leaves the
-kernels normalized in standard form, the identity as exactly
+jacobian, standard form, as ``native._bn2_pts_to_u64`` gives them.  K9 and
+K11 turn them into working rows (projective, Montgomery form) in a first
+launch (K9 the affine entries of each point's multiples 1..8, K11 the rows
+of its comb table, which the C++ tier builds and :func:`bexp_table`
+caches per base), K12 as each thread loads them, and every result leaves
+the kernels normalized in standard form, the identity as exactly
 ``BNTwistPoint.identity``'s (1, 1, 0), which is an input row again.
 Scalars are recoded against the BN group order (``bn256.ORDER``), with the
 -8 digit guard of ``msm_cuda``'s recoding.
+
+K12 is K7's design (K3's) over GF(p^2): the fold challenge c as the
+width-5 NAF of c mod the BN order (``msm_cuda.fold_digits(c, ORDER)``),
+each element's table of its odd multiples 1, 3, ..., 15 (one doubling and
+7 adds, 1.5 KB of local memory), the sum from the first nonzero digit,
+and one wave of ``msm_cuda.fold_threads`` threads, each normalizing its
+elements g, g + G, ... with one GF(p^2) inversion.
 """
 
 from __future__ import annotations
@@ -43,7 +50,6 @@ from . import curve_bn2 as cb2
 from . import field_bn254x2 as fp2
 from . import msm_cuda as mc
 
-TABLE = mc.TABLE  # fold table 0..15
 TABLE_S = mc.TABLE_S  # signed-digit table 0..8
 ROW = cb2.ROW
 ENTRY = 16  # K9's affine table entry (x R, y R)
@@ -193,28 +199,30 @@ def bexp_threads(n: int, dev: torch.device) -> int:
 
 def fold_rows(gl: torch.Tensor, gr: torch.Tensor,
               cdigits: np.ndarray) -> torch.Tensor:
-    """[gl_i^c * gr_i] as normalized rows; ``cdigits``: c's unsigned 4-bit
-    windows, most significant first (``msm_cuda.scalar_digits`` with the
-    BN order).  CUDA: K12; CPU: :func:`fold_plain`."""
+    """[gl_i^c * gr_i] as normalized rows; ``cdigits``: the width-5 NAF of
+    c mod the BN order, most significant first (``msm_cuda.fold_digits(c,
+    ORDER)``).  CUDA: K12, G = ``msm_cuda.fold_threads`` threads, thread g
+    folding the elements g, g + G, ... and normalizing them with one
+    inversion; CPU: :func:`fold_plain`."""
     mc._check_rows(gl, "gl", 2, ROW)
     mc._check_rows(gr, "gr", 2, ROW)
     if gl.shape != gr.shape or not gl.shape[0]:
         raise ValueError("gl and gr differ in shape or are empty")
-    cdig = np.ascontiguousarray(cdigits, dtype=np.uint8).reshape(-1)
-    if len(cdig) > mc.NWINDOWS or cdig.max(initial=0) >= TABLE:
-        raise ValueError("fold digits must be <= 64 windows in [0, 15]")
+    cdig = mc.check_fold_digits(cdigits)
     if mc._same_device(gl, gr).type == "cpu":
         return fold_plain(gl, gr, cdig)
     from . import _cuda_build as cb
 
     n = gl.shape[0]
-    work = torch.empty((2 * n, ROW), dtype=torch.int64, device=gl.device)
+    pre = torch.empty((n, 8), dtype=torch.int64, device=gl.device)
     out = torch.empty((n, ROW), dtype=torch.int64, device=gl.device)
     cb.check(cb.lib().vmpc_cu_bn2_fold_norm(
-        gl.data_ptr(), gr.data_ptr(), work.data_ptr(), cdig.ctypes.data,
-        len(cdig), out.data_ptr(), n, mc._stream(gl)), "bn2_fold")
+        gl.data_ptr(), gr.data_ptr(), cdig.ctypes.data, len(cdig),
+        mc.fold_threads(n, gl.device, "bn2_fold"), pre.data_ptr(),
+        out.data_ptr(), n, mc._stream(gl)), "bn2_fold")
     mc.LAUNCHES["bn2_fold"] += 1
     return out
+
 
 
 # ---------------------------------------------------------------------------
@@ -288,21 +296,9 @@ def bexp_plain(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
 
 def fold_plain(gl: torch.Tensor, gr: torch.Tensor,
                cdig: np.ndarray) -> torch.Tensor:
-    """Plain version of K12: the working rows of gl and gr, table 0..15 of
-    gl, Horner over c's unsigned windows, add gr, normalize."""
-    n = gl.shape[0]
-    g = cb2.split_rows(cb2.encode_jacobian_rows(gl))
-    tbl = [None, g]
-    for _ in range(2, TABLE):
-        tbl.append(cb2.add(tbl[-1], g))
-    acc = cb2.identity((n,), gl.device)
-    for d in cdig:
-        for _ in range(mc.WINDOW):
-            acc = cb2.dbl(acc)
-        if d:
-            acc = cb2.add(acc, tbl[int(d)])
-    return cb2.normalize_rows(
-        cb2.add(acc, cb2.split_rows(cb2.encode_jacobian_rows(gr))))
+    """Plain version of K12: the fold of ``msm_cuda.bn_fold_plain`` over
+    the twist."""
+    return mc.bn_fold_plain(gl, gr, cdig, cb2)
 
 
 # ---------------------------------------------------------------------------
@@ -332,7 +328,7 @@ def msm(points, scalars) -> BNTwistPoint:
 def fold(g_l, g_r, c: int) -> list:
     """[g_l[i] ** c * g_r[i]] (normalized) through K12."""
     assert len(g_l) == len(g_r)
-    cdig = mc.scalar_digits([int(c)], ORDER)[:, 0]
+    cdig = mc.fold_digits(int(c), ORDER)
     dev = mc.current_device()
     out = fold_rows(cb2.encode_points(g_l, dev), cb2.encode_points(g_r, dev),
                     cdig)

@@ -9,7 +9,7 @@ hand-written in CUDA (``csrc/bn_*.cu``, one source each, over
 =====  =====================  ==========================================
 K5     bn_msm_accumulate      4-bit signed-window accumulation (B1, BN)
 K6     bn_msm_tail            window reduction + split Horner + normalize (B2)
-K7     bn_fold                g_l^c * g_r + normalize (B3, BN)
+K7     bn_fold                g_l^c * g_r + batch normalize (B3, BN)
 K8     bn_comb                fixed-base comb + batch normalize (B5, BN)
 =====  =====================  ==========================================
 
@@ -21,13 +21,13 @@ CUDA tensor never reaches a plain version, and a failed build or launch
 raises.
 
 Points travel as ``[n, 12]`` int64 input rows (``ops/curve_bn.py``):
-jacobian, standard form, as ``native._bn_pts_to_u64`` gives them.  K5, K7
-and K8 turn them into working rows (projective, Montgomery form) in a
-first launch, and every result leaves the kernels normalized in standard
-form, the identity as exactly ``BNPoint.identity``'s (1, 1, 0), which is
-an input row again.  Scalars are recoded against the BN group
-order (``bn256.ORDER``), never the Ed25519 default of the shared digit
-helpers.
+jacobian, standard form, as ``native._bn_pts_to_u64`` gives them.  K5 and
+K8 turn them into working rows (projective, Montgomery form) in a first
+launch, K7 as each thread loads them, and every result leaves the kernels
+normalized in standard form, the identity as exactly
+``BNPoint.identity``'s (1, 1, 0), which is an input row again.  Scalars
+are recoded against the BN group order (``bn256.ORDER``), never the
+Ed25519 default of the shared digit helpers.
 """
 
 from __future__ import annotations
@@ -39,7 +39,6 @@ from ..groups.bn256 import ORDER, BNPoint
 from . import curve_bn as cbn
 from . import msm_cuda as mc
 
-TABLE = mc.TABLE  # fold table 0..15
 TABLE_S = mc.TABLE_S  # signed-digit table 0..8
 ROW = cbn.ROW
 # K6 (csrc/bn_msm_tail.cu): the window groups of the combination
@@ -120,28 +119,32 @@ def msm_rows(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
 
 def fold_rows(gl: torch.Tensor, gr: torch.Tensor,
               cdigits: np.ndarray) -> torch.Tensor:
-    """[gl_i^c * gr_i] as normalized rows; ``cdigits``: c's unsigned 4-bit
-    windows, most significant first (``msm_cuda.scalar_digits`` with the
-    BN order).  CUDA: K7; CPU: :func:`fold_plain`."""
+    """[gl_i^c * gr_i] as normalized rows; ``cdigits``: the width-5 NAF of
+    c mod the BN order, most significant first (``msm_cuda.fold_digits(c,
+    ORDER)``).  CUDA: K7, G = ``msm_cuda.fold_threads`` threads, thread g
+    folding the elements g, g + G, ... and normalizing them with one
+    inversion; CPU: :func:`fold_plain`."""
     mc._check_rows(gl, "gl", 2, ROW)
     mc._check_rows(gr, "gr", 2, ROW)
     if gl.shape != gr.shape:
         raise ValueError("gl and gr differ in shape")
-    cdig = np.ascontiguousarray(cdigits, dtype=np.uint8).reshape(-1)
-    if len(cdig) > mc.NWINDOWS or cdig.max(initial=0) >= TABLE:
-        raise ValueError("fold digits must be <= 64 windows in [0, 15]")
+    cdig = mc.check_fold_digits(cdigits)
     if mc._same_device(gl, gr).type == "cpu":
         return fold_plain(gl, gr, cdig)
     from . import _cuda_build as cb
 
     n = gl.shape[0]
-    work = torch.empty((2 * n, ROW), dtype=torch.int64, device=gl.device)
     out = torch.empty((n, ROW), dtype=torch.int64, device=gl.device)
+    if not n:
+        return out
+    pre = torch.empty((n, 4), dtype=torch.int64, device=gl.device)
     cb.check(cb.lib().vmpc_cu_bn_fold_norm(
-        gl.data_ptr(), gr.data_ptr(), work.data_ptr(), cdig.ctypes.data,
-        len(cdig), out.data_ptr(), n, mc._stream(gl)), "bn_fold")
+        gl.data_ptr(), gr.data_ptr(), cdig.ctypes.data, len(cdig),
+        mc.fold_threads(n, gl.device, "bn_fold"), pre.data_ptr(),
+        out.data_ptr(), n, mc._stream(gl)), "bn_fold")
     mc.LAUNCHES["bn_fold"] += 1
     return out
+
 
 
 def comb_rows(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
@@ -273,22 +276,9 @@ def msm_plain(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
 
 def fold_plain(gl: torch.Tensor, gr: torch.Tensor,
                cdig: np.ndarray) -> torch.Tensor:
-    """Plain version of K7: the working rows of gl and gr, table 0..15 of
-    gl, Horner over c's unsigned windows, add gr, normalize."""
-    n = gl.shape[0]
-    dev = gl.device
-    g = cbn.split_rows(cbn.encode_jacobian_rows(gl))
-    tbl = [None, g]
-    for _ in range(2, TABLE):
-        tbl.append(cbn.add(tbl[-1], g))
-    acc = cbn.identity((n,), dev)
-    for d in cdig:
-        for _ in range(mc.WINDOW):
-            acc = cbn.dbl(acc)
-        if d:
-            acc = cbn.add(acc, tbl[int(d)])
-    return cbn.normalize_rows(
-        cbn.add(acc, cbn.split_rows(cbn.encode_jacobian_rows(gr))))
+    """Plain version of K7: the fold of ``msm_cuda.bn_fold_plain`` over
+    G1."""
+    return mc.bn_fold_plain(gl, gr, cdig, cbn)
 
 
 def comb_plain(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
@@ -324,7 +314,7 @@ def msm(points, scalars) -> BNPoint:
 def fold(g_l, g_r, c: int) -> list:
     """[g_l[i] ** c * g_r[i]] (normalized) through K7."""
     assert len(g_l) == len(g_r)
-    cdig = mc.scalar_digits([int(c)], ORDER)[:, 0]
+    cdig = mc.fold_digits(int(c), ORDER)
     dev = mc.current_device()
     out = fold_rows(cbn.encode_points(g_l, dev), cbn.encode_points(g_r, dev),
                     cdig)

@@ -42,14 +42,17 @@ from . import dispatch
 
 WINDOW = 4
 NWINDOWS = 64  # 256 / WINDOW
-TABLE = 1 << WINDOW  # the BN folds' table 0..15 (unsigned digits)
 TABLE_S = (1 << (WINDOW - 1)) + 1  # 0..8: signed-digit table
-# K3: c's width-5 NAF in FOLD_DIGITS digits, and its threads an SM: fewer
-# than its registers allow (384), which ran faster on an H100
-# (chip_variants.py's k3_wave384 and k3_wave128, PERF.md)
-FOLD_DIGITS = 256
+# the folds K3, K7 and K12: c's width-5 NAF, one digit more than the
+# order's bits (254 for Ed25519's l, 257 for the 256-bit BN order), at
+# most MAX_FOLD_DIGITS (FOLD_DIGITS in csrc/digits.cuh)
+MAX_FOLD_DIGITS = 257
 FOLD_NAF_WIDTH = 5
-FOLD_SM_THREADS = 256
+# the folds' threads an SM, by kernel (fold_threads): K3 fewer than its
+# registers allow (384), which ran faster on an H100 (chip_variants.py's
+# k3_wave384 and k3_wave128, PERF.md); K7 and K12 all that theirs allow
+# (their __launch_bounds__ decide it; k7_wave*, k12_wave*)
+FOLD_SM_THREADS = {"fold": 256, "bn_fold": None, "bn2_fold": None}
 # points one (window, slice) thread of K1's and K5's window accumulation
 # walks (32: 3-5 % less time than 16 for K1 + K2 and K5 + K6 at 2^17
 # points on an H100, PERF.md; K9 takes its own, msm_bn2_cuda)
@@ -103,7 +106,7 @@ def reset_launches():
 
 def scalar_digits(scalars, order: int = ELL) -> np.ndarray:
     """[N] ints -> [NWINDOWS, N] unsigned 4-bit digits, most significant
-    window first (the BN folds' digit stream, ``ops/msm._scalar_digits``)."""
+    window first (``ops/msm._scalar_digits``)."""
     raw = b"".join((int(s) % order).to_bytes(32, "little") for s in scalars)
     by = np.frombuffer(raw, dtype=np.uint8).reshape(len(scalars), 32)
     digits = np.empty((len(scalars), NWINDOWS), np.uint32)
@@ -112,15 +115,21 @@ def scalar_digits(scalars, order: int = ELL) -> np.ndarray:
     return np.ascontiguousarray(digits[:, ::-1].T)
 
 
-def fold_digits(c: int) -> np.ndarray:
-    """c mod ELL -> [FOLD_DIGITS] int8, its width-5 NAF (K3's digits), most
-    significant first: every digit 0 or odd in [-15, 15], at most one
-    nonzero in any five, sum_b d_b 2^(FOLD_DIGITS - 1 - b) = c.  c is not
-    balanced against the order (as :func:`scalar_digits_signed` does), so
-    the fold does not rest on its points lying in the order's subgroup."""
-    c %= ELL
+def fold_digits(c: int, order: int = ELL) -> np.ndarray:
+    """c mod ``order`` -> [m] int8, its width-5 NAF (the digits of K3, and
+    of K7 and K12 with the BN order), most significant first: every digit
+    0 or odd in [-15, 15], at most one nonzero in any five,
+    sum_b d_b 2^(m - 1 - b) = c mod order.  m is one more than the
+    order's bits (a NAF may run one digit past the top bit: 257 for the
+    256-bit BN order).  c is not balanced against the order (as
+    :func:`scalar_digits_signed` does), so the fold does not rest on its
+    points lying in the order's subgroup."""
+    m = order.bit_length() + 1
+    if order < 2 or m > MAX_FOLD_DIGITS:
+        raise ValueError(f"fold order of {order.bit_length()} bits")
+    c %= order
     w = 1 << FOLD_NAF_WIDTH
-    out = np.zeros(FOLD_DIGITS, np.int8)
+    out = np.zeros(m, np.int8)
     b = 0
     while c:
         d = 0
@@ -133,6 +142,21 @@ def fold_digits(c: int) -> np.ndarray:
         c >>= 1
         b += 1
     return np.ascontiguousarray(out[::-1])
+
+
+def fold_challenges(order: int = ELL) -> dict:
+    """The folds' edge challenges for ``order``, by name: 0, 1, 8 (one
+    nonzero NAF digit), 9, order - 1, one with runs of zeros (the nibble 7
+    in every third 4-bit window from window 20, least significant first)
+    and, where it lies below the order (the 256-bit BN order, not
+    Ed25519's l), 17 * 2^(bits - 5), whose width-5 NAF takes a digit past
+    the order's top bit."""
+    top = 17 << (order.bit_length() - 5)
+    out = {"c0": 0, "c1": 1, "c8": 8, "c9": 9, "order-1": order - 1,
+           "zero-run": sum(7 << (4 * w) for w in range(20, 63, 3))}
+    if top < order:
+        out["top-digit"] = top
+    return out
 
 
 def scalar_digits_signed(scalars, order: int = ELL) -> np.ndarray:
@@ -383,6 +407,21 @@ def msm_rows(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
         points, digits, slices_for(points.shape[1], ACCUM_POINTS_PER_THREAD)))
 
 
+def check_fold_digits(cdigits) -> np.ndarray:
+    """The fold digits of K3, K7 and K12 as contiguous int8, after checking
+    them: at most MAX_FOLD_DIGITS, each 0 or odd in [-15, 15]
+    (:func:`fold_digits`)."""
+    cdig = np.asarray(cdigits)
+    half = 1 << (FOLD_NAF_WIDTH - 1)
+    if (cdig.size > MAX_FOLD_DIGITS
+            or not np.issubdtype(cdig.dtype, np.integer)
+            or (cdig % 2 == 0)[cdig != 0].any()
+            or np.abs(cdig.astype(np.int64)).max(initial=0) >= half):
+        raise ValueError(f"fold digits must be <= {MAX_FOLD_DIGITS} NAF "
+                         f"digits, 0 or odd below {half} in magnitude")
+    return np.ascontiguousarray(cdig, dtype=np.int8).reshape(-1)
+
+
 def fold_rows(gl: torch.Tensor, gr: torch.Tensor,
               cdigits: np.ndarray) -> torch.Tensor:
     """[gl_i^c * gr_i] as canonical rows; ``cdigits``: c's width-5 NAF,
@@ -393,12 +432,7 @@ def fold_rows(gl: torch.Tensor, gr: torch.Tensor,
     _check_rows(gr, "gr", 2)
     if gl.shape != gr.shape:
         raise ValueError("gl and gr differ in shape")
-    cdig = np.ascontiguousarray(cdigits, dtype=np.int8).reshape(-1)
-    half = 1 << (FOLD_NAF_WIDTH - 1)
-    if (len(cdig) > FOLD_DIGITS or (cdig % 2 == 0)[cdig != 0].any()
-            or np.abs(cdig.astype(np.int16)).max(initial=0) >= half):
-        raise ValueError(f"fold digits must be <= {FOLD_DIGITS} NAF digits,"
-                         f" 0 or odd below {half} in magnitude")
+    cdig = check_fold_digits(cdigits)
     if _same_device(gl, gr).type == "cpu":
         return fold_plain(gl, gr, cdig)
     from . import _cuda_build as cb
@@ -416,13 +450,16 @@ def fold_rows(gl: torch.Tensor, gr: torch.Tensor,
     return out
 
 
-def fold_threads(n: int, dev: torch.device) -> int:
-    """K3's thread count G for n elements: one wave (:func:`one_wave`) of
-    at most FOLD_SM_THREADS an SM."""
+def fold_threads(n: int, dev: torch.device, kernel: str = "fold") -> int:
+    """The thread count G of the fold ``kernel`` (``fold`` K3, ``bn_fold``
+    K7, ``bn2_fold`` K12) for n elements: one wave (:func:`one_wave`) of
+    what its registers allow an SM (``vmpc_cu_<kernel>_resident``), at
+    most FOLD_SM_THREADS[kernel] where that is set."""
     from . import _cuda_build as cb
 
-    return one_wave(n, min(cb.lib().vmpc_cu_fold_resident(),
-                           FOLD_SM_THREADS), dev)
+    per_sm = getattr(cb.lib(), f"vmpc_cu_{kernel}_resident")()
+    cap = FOLD_SM_THREADS[kernel]
+    return one_wave(n, per_sm if cap is None else min(per_sm, cap), dev)
 
 
 def comb_rows(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
@@ -543,6 +580,39 @@ def bn_comb_plain(table: torch.Tensor, digits: torch.Tensor,
         sel = law.neg_where(db < 0, law.split_rows(rows))
         out.append(law.normalize_rows(_tree_sum(sel, 0, law)))
     return torch.cat(out, dim=0)
+
+
+def bn_fold_plain(gl: torch.Tensor, gr: torch.Tensor, cdig: np.ndarray,
+                  law) -> torch.Tensor:
+    """The plain fold over a BN curve (``law``: ``curve_bn`` for K7,
+    ``curve_bn2`` for K12): the working rows of gl, the table of its odd
+    multiples 1, 3, ... up to the largest |digit| of c (a doubling and the
+    adds), the sum started from the first nonzero NAF digit's entry, then
+    per digit a doubling and for a nonzero one an add of +-T[(|d| - 1) /
+    2], the add of gr's working rows, normalize."""
+    n = gl.shape[0]
+    nz = np.flatnonzero(cdig)
+    if nz.size:
+        g = law.split_rows(law.encode_jacobian_rows(gl))
+        step = law.dbl(g)
+        tbl = [g]
+        for _ in range(int(np.abs(cdig.astype(np.int16)).max()) // 2):
+            tbl.append(law.add(tbl[-1], step))
+        neg = torch.ones((n,), dtype=torch.bool, device=gl.device)
+
+        def entry(d):
+            q = tbl[(abs(d) - 1) // 2]
+            return q if d > 0 else law.neg_where(neg, q)
+
+        acc = entry(int(cdig[nz[0]]))
+        for d in cdig[nz[0] + 1:]:
+            acc = law.dbl(acc)
+            if d:
+                acc = law.add(acc, entry(int(d)))
+    else:
+        acc = law.identity((n,), gl.device)
+    return law.normalize_rows(law.add(
+        acc, law.split_rows(law.encode_jacobian_rows(gr))))
 
 
 def bn_comb_table(cache: dict, base, nw: int, device, build) -> torch.Tensor:
